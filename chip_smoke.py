@@ -9,10 +9,11 @@ Phases, in order; any failure makes the exit code non-zero:
 
 1. Print the card's name and power limit (``nvidia-smi``), then build the
    CUDA kernels from ``src/repro_torch/csrc`` and print the build time.
-2. Hold each CUDA kernel against its plain PyTorch version on the card,
-   at the shapes the served n337 plan gives it (read off the compiled
-   plan), with the tolerance printed beside it; time kernel, plain version
-   and, where one PyTorch call computes the same function, that call.
+2. Hold each CUDA kernel of the reuse path against its plain PyTorch
+   version on the card, at the shapes the served n337 plan gives it (read
+   off the compiled plan), with the tolerance printed beside it; time
+   kernel, plain version and, where one PyTorch call computes the same
+   function, that call.
 3. Serve full-width n337 (Table III: 80 maps, 10 layers; random weights
    from a seed) through ``VolumeEngine`` on an ``H100_SXM`` plan with the
    deployed primitives (``overlap_save`` at layer 0, ``fft_cached`` deeper,
@@ -22,7 +23,20 @@ Phases, in order; any failure makes the exit code non-zero:
    oracle (``apply_dense_reference``, TF32 off).  The largest request is
    swept once more offline (``PlanExecutor.run``) and its counters held
    against ``predict_counts``.
-4. Print the kernels' JSON line, then, as the last line,
+4. The dense path: the planner's own primitives for n337 on an H100
+   (``plan_single``: direct, mpf, overlap_save, mpf, fft_cached, mpf,
+   fft_cached ×3, direct), cut only in patch size (m=8, batch 2).  First the
+   three kernels it adds (``conv3d`` at layers 0 and 9, ``os_segment_conv``
+   at layer 2, ``mpf_pool_window`` in the fused pair at layers 4-5) against
+   their plain versions and timed, then three requests served through
+   ``VolumeEngine`` with the launch counts zeroed before and read after,
+   held against the dense oracle, and one more patch batch under
+   ``torch.profiler``: device time by kernel, and the share of the
+   batch's wall time the device was busy.
+5. The plain-pool path: ``tiled_apply`` on ``bench-net`` with the
+   ``use_mpf=False`` plan's primitives (P=4: 64 shifted passes a patch),
+   held against the dense oracle.
+6. Print the kernels' JSON line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -51,12 +65,21 @@ KERNELS = {
                       "src/repro/kernels/cmul_mad/kernel.py:124"),
     "mpf_pool": ("src/repro_torch/csrc/mpf_pool.cu",
                  "src/repro/kernels/mpf_pool/kernel.py:37"),
+    "mpf_pool_window": ("src/repro_torch/csrc/mpf_pool.cu",
+                        "src/repro/kernels/mpf_pool/kernel.py:79"),
+    "os_segment_conv": ("src/repro_torch/csrc/os_segment.cu",
+                        "src/repro/kernels/os_segment/kernel.py:200"),
+    "conv3d": ("src/repro_torch/csrc/direct_conv3d.cu",
+               "src/repro/kernels/direct_conv3d/kernel.py:52"),
 }
 # kernels each serving mode must launch (cmul_mad_bias only serves the
-# fused conv+pool pairs of fuse_os)
+# fused conv+pool pairs: fuse_os on the reuse path, fuse_pairs on the
+# dense path)
 REACHED = {
     False: ("os_segment", "cmul_mad", "mpf_pool"),
     True: ("os_segment", "cmul_mad", "cmul_mad_bias", "mpf_pool"),
+    "dense": ("conv3d", "os_segment_conv", "mpf_pool_window", "cmul_mad_bias",
+              "cmul_mad", "mpf_pool"),
 }
 # end-to-end tolerance of the reference's volume tests
 E2E = dict(atol=1e-3, rtol=1e-4)
@@ -261,16 +284,18 @@ def request_shapes(core: int, fov: int):
     ]
 
 
-def serve(smoke, net, plan, params, vols, dense, device, fuse_os, engine=None):
-    """Phase 3 for one mode: drive VolumeEngine with counts zeroed just
-    before and read just after; hold outputs against the dense oracle."""
+def serve(smoke, label, reached, net, plan, params, vols, dense, device,
+          engine=None, **engine_kw):
+    """Serve three requests through VolumeEngine with the launch counts
+    zeroed just before and read just after; hold outputs against the dense
+    oracle.  A tick that advances two requests is a mixed tick."""
     import torch
 
     from repro_torch import kernels
     from repro_torch.serving import VolumeEngine, VolumeRequest
 
     if engine is None:
-        engine = VolumeEngine(params, net, plan, fuse_os=fuse_os, device=device)
+        engine = VolumeEngine(params, net, plan, device=device, **engine_kw)
     reqs = [VolumeRequest(i, v) for i, v in enumerate(vols)]
     for r in reqs:
         engine.submit(r)
@@ -278,34 +303,40 @@ def serve(smoke, net, plan, params, vols, dense, device, fuse_os, engine=None):
         torch.cuda.reset_peak_memory_stats(device)
     _sync(device)
     kernels.reset_launch_counts()
+    mixed = False
     t0 = time.perf_counter()
-    engine.run_until_drained()
+    while True:
+        before = [len(r._patches) for r in reqs]
+        if engine.step() == 0:
+            break
+        mixed |= sum(b != len(r._patches) for b, r in zip(before, reqs)) > 1
     _sync(device)
     dt = time.perf_counter() - t0
     counts = kernels.launch_counts()
     ex = engine.executor
     vox = sum(float(math.prod(r.out.shape[1:])) for r in reqs)
-    mixed = any(k[0] == "oswalk" for k in ex._trace_keys)
     peak_alloc = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
-    print(f"serve fuse_os={fuse_os}: {len(reqs)} requests, {engine.ticks} ticks, "
+    print(f"serve {label}: {len(reqs)} requests, {engine.ticks} ticks, "
           f"{vox:.0f} voxels in {dt:.3f} s = {vox / dt:.1f} vox/s; "
           f"peak_device_bytes (ledger) {ex.last_stats['peak_device_bytes']:.0f}, "
           f"max_memory_allocated {peak_alloc}; retraces {ex.last_stats['retraces']}; "
           f"launches {json.dumps(counts)}", flush=True)
-    smoke.check(all(r.done for r in reqs), f"fuse_os={fuse_os}: every request done")
-    smoke.check(mixed, f"fuse_os={fuse_os}: a tick mixed two requests")
-    smoke.check(ex.fuse_os == fuse_os, f"fuse_os={fuse_os}: executor mode")
-    for name in REACHED[fuse_os]:
-        smoke.check(counts[name] > 0, f"fuse_os={fuse_os}: {name} launched "
+    smoke.check(all(r.done for r in reqs), f"{label}: every request done")
+    smoke.check(mixed, f"{label}: a tick mixed two requests")
+    for name in reached:
+        smoke.check(counts[name] > 0, f"{label}: {name} launched "
                                       f"{counts[name]} times on the main path")
     for r, want in zip(reqs, dense):
         got = torch.from_numpy(r.out)
         ok, err = _close(got, want, **E2E)
         smoke.check(ok and bool(torch.isfinite(got).all()),
-                    f"fuse_os={fuse_os}: request {r.rid} {tuple(r.out.shape)} vs "
+                    f"{label}: request {r.rid} {tuple(r.out.shape)} vs "
                     f"dense oracle: max_abs_err {err:.3e} (atol {E2E['atol']}, "
                     f"rtol {E2E['rtol']}, max|ref| {float(want.abs().max()):.3f})")
-    return engine, counts, dict(seconds=dt, voxps=vox / dt, voxels=vox)
+    stats = dict(seconds=dt, voxps=vox / dt, voxels=vox, ticks=engine.ticks,
+                 ledger_peak=ex.last_stats["peak_device_bytes"],
+                 max_memory_allocated=peak_alloc)
+    return engine, counts, stats
 
 
 def offline(smoke, ex, vol, dense, device):
@@ -335,8 +366,265 @@ def offline(smoke, ex, vol, dense, device):
     smoke.check(ok, f"offline output vs dense oracle: max_abs_err {err:.3e}")
     return s
 
+def check_dense_kernels(smoke, ex, plan, params, device, gen):
+    """Phase 4, kernels: the three the dense path adds, at its shapes."""
+    import torch
+    import torch.nn.functional as F
 
-def run(device, net, m: int, batch: int, hw, seed: int = 0):
+    from repro_torch.kernels.direct_conv3d import ops as conv3d_ops
+    from repro_torch.kernels.mpf_pool import ops as mpf_ops
+    from repro_torch.kernels.os_segment import ops as seg_ops
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(device)
+
+    def cudnn(fn):
+        # the library yardstick in full fp32, like the dense oracle
+        def call():
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                return fn()
+        return call
+
+    layers, states, choices = ex.compiled.layers, ex.compiled.states, plan.choices
+    results = {}
+
+    # conv3d at both direct layers: layer 0 (f=1, f'=80, k=2) and the last
+    # (f=80, f'=3, k=3); its ms, plain ms, bound and library ms are the sums
+    # over the two call sites, bound_by that of the call with the larger bound
+    r = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
+    worst = (0.0, "bytes")
+    for i, pl in enumerate(layers):
+        if pl.prim != "direct":
+            continue
+        S, f, n = choices[i].in_shape
+        w, b = params[i]
+        x = randn(S, f, *n)
+        got = conv3d_ops.conv3d(x, w)
+        want = conv3d_ops.conv3d(x, w, use_kernels=False)
+        ok, err = _close(got, want, **E2E)
+        smoke.check(ok, f"conv3d (layer {i}) vs plain, x {tuple(x.shape)} w "
+                        f"{tuple(w.shape)}: max_abs_err {err:.3e} (atol {E2E['atol']}, "
+                        f"rtol {E2E['rtol']})")
+        k3 = math.prod(w.shape[2:])
+        flops = 2.0 * got.numel() * f * k3
+        bms, bb = bound(_nb(x) + _nb(w) + _nb(got), flops)
+        ms = time_ms(lambda: conv3d_ops.conv3d(x, w), device)
+        pms = time_ms(lambda: conv3d_ops.conv3d(x, w, use_kernels=False), device, reps=2)
+        lms = time_ms(cudnn(lambda: F.conv3d(x, w, b)), device)
+        print(f"conv3d layer {i}: {ms:.3f} ms, plain {pms:.3f} ms, cuDNN conv3d "
+              f"{lms:.3f} ms, bound {bms:.3f} ms ({bb})", flush=True)
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r["ms"] += ms
+        r["plain_ms"] += pms
+        r["bound_ms"] += bms
+        r["library_ms"] += lms
+        worst = max(worst, (bms, bb))
+        del x, got, want
+    r["bound_by"] = worst[1]
+    results["conv3d"] = r
+
+    # os_segment_conv: the overlap_save layer's self-contained apply
+    i2 = next(i for i, pl in enumerate(layers) if pl.prim == "overlap_save")
+    spec = layers[i2].os_spec
+    S2, f2, n2 = choices[i2].in_shape
+    W2, b2 = states[i2]["W"], params[i2][1]
+    x2 = torch.relu(randn(S2, f2, *n2))
+    got = seg_ops.os_segment_conv(x2, W2, b2, spec)
+    want = seg_ops.os_segment_conv(x2, W2, b2, spec, use_kernels=False)
+    ok, err = _close(got, want, **E2E)
+    A, B, C = spec.fft_shape
+    print(f"os_segment_conv spec: seg_core {spec.seg_core}, seg_extent "
+          f"{spec.seg_extent}, Q {spec.n_segments}, fft {spec.fft_shape}", flush=True)
+    smoke.check(ok, f"os_segment_conv vs plain, x {tuple(x2.shape)} W {tuple(W2.shape)}: "
+                    f"max_abs_err {err:.3e} (atol {E2E['atol']}, rtol {E2E['rtol']})")
+    NQ, fp = S2 * spec.n_segments, W2.shape[0]
+    n_fft = A * B * C
+    # the function's work: the complex MAD, one forward FFT per (segment,
+    # input channel) and one inverse per (segment, output channel) at
+    # 2.5 n log2 n; bytes: x, W, the bias and the output, each once
+    flops = (8.0 * NQ * f2 * fp * W2[0, 0].numel()
+             + NQ * (f2 + fp) * 2.5 * n_fft * math.log2(n_fft))
+    r = dict(max_abs_err=err)
+    r["bound_ms"], r["bound_by"] = bound(_nb(x2) + _nb(W2) + _nb(b2) + _nb(got), flops)
+    r["ms"] = time_ms(lambda: seg_ops.os_segment_conv(x2, W2, b2, spec), device)
+    r["plain_ms"] = time_ms(
+        lambda: seg_ops.os_segment_conv(x2, W2, b2, spec, use_kernels=False),
+        device, reps=2)
+    w2 = params[i2][0]
+    r["library_ms"] = time_ms(cudnn(lambda: F.conv3d(x2, w2, b2)), device)
+    results["os_segment_conv"] = r
+    del x2, got, want
+
+    # mpf_pool_window: the pool of the fused fft_cached+mpf pair, over the
+    # inverse's output uncropped on the last axis
+    i4 = next(i for i, pl in enumerate(layers)
+              if pl.prim == "fft_cached" and i + 1 < len(layers)
+              and layers[i + 1].prim == "mpf")
+    S4, _, n4 = choices[i4].in_shape
+    k4 = layers[i4].kernel_size
+    window = tuple(ni - ki + 1 for ni, ki in zip(n4, k4))
+    p = layers[i4 + 1].pool_size
+    x4 = randn(S4, params[i4][0].shape[0], window[0], window[1],
+               layers[i4].fft_shape[2])
+    got = mpf_ops.mpf_pool_window(x4, p, window)
+    want = mpf_ops.mpf_pool_window(x4, p, window, use_kernels=False)
+    err = float((got - want).abs().max())
+    smoke.check(err == 0.0, f"mpf_pool_window vs plain, x {tuple(x4.shape)} window "
+                            f"{window} p {p}: max_abs_err {err:.3e} (exact)")
+    r = dict(max_abs_err=err)
+    win_bytes = 4.0 * x4.shape[0] * x4.shape[1] * math.prod(window)
+    r["bound_ms"], r["bound_by"] = bound(win_bytes + _nb(got),
+                                         float(got.numel()) * (p**3 - 1))
+    r["ms"] = time_ms(lambda: mpf_ops.mpf_pool_window(x4, p, window), device)
+    r["plain_ms"] = time_ms(
+        lambda: mpf_ops.mpf_pool_window(x4, p, window, use_kernels=False), device, reps=2)
+    r["library_ms"] = None
+    print("mpf_pool_window: library none — no single PyTorch call yields all p³ "
+          "pooling fragments in the s·p³+o batch order (max_pool3d gives one "
+          "offset a call)", flush=True)
+    results["mpf_pool_window"] = r
+    del x4, got, want
+    for name, r in results.items():
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.3f}"
+        print(f"kernel {name}: {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+              f"library {lib} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']})",
+              flush=True)
+    return results
+
+
+def run_dense(smoke, device, net, params, hw, m, batch, launches, serving, gen,
+              prims=None):
+    """Phase 4: the planner's own dense plan for the net (or ``prims``), at
+    fragment size ``m``: its kernels, then three served requests."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import convnet, planner
+    from repro_torch.serving import VolumeEngine
+
+    own = planner.plan_single(net, hw)
+    print(f"planner's own plan: {net.name} m {own.m_final} batch {own.batch} "
+          f"n_in {own.n_in} core {own.core} predicted {own.throughput:.1f} vox/s "
+          f"prims {own.prims}", flush=True)
+    fov = net.field_of_view()
+    core = m * net.total_pooling()
+    shapes = request_shapes(core, fov)
+    plan = planner.plan_fixed(net, hw, prims or own.prims, m=m, batch=batch)
+    if plan is None:
+        smoke.check(False, "plan_fixed found the dense configuration infeasible")
+        return {}
+    print(f"dense plan: core {plan.core} n_in {plan.n_in} batch {plan.batch} "
+          f"prims {plan.prims}; layer inputs "
+          f"{[(c.prim, c.in_shape[0], c.in_shape[1]) for c in plan.choices]}", flush=True)
+    engine = VolumeEngine(params, net, plan, device=device)
+    smoke.check(not engine.executor._os_reuse and engine.executor.fuse_pairs,
+                "dense plan: dense walk with fused conv+pool pairs")
+    results = check_dense_kernels(smoke, engine.executor, plan, params, device, gen)
+    rng = np.random.default_rng(1)
+    vols = [rng.normal(size=(net.in_channels,) + s).astype(np.float32) for s in shapes]
+    dense = [
+        convnet.apply_dense_reference(
+            params, net, torch.from_numpy(v)[None].to(device))[0].cpu()
+        for v in vols
+    ]
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    engine, counts, serving["dense"] = serve(
+        smoke, "dense", REACHED["dense"], net, plan, params, vols, dense, device,
+        engine=engine,
+    )
+    for name in launches:
+        launches[name] += counts[name]
+    profile_batch(engine, vols[0], device)
+    del engine
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return results
+
+
+def profile_batch(engine, vol, device):
+    """One full dense patch batch under torch.profiler (after a warm-up
+    batch): device time by kernel, and the device's busy share of the
+    batch's wall time (one stream, so kernel times do not overlap)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.volume.tiler import extract_patch
+
+    ex = engine.executor
+    tiling = ex.tiling_for(vol.shape[1:])
+    xs = np.stack([extract_patch(vol, s, tiling.extent)
+                   for s in tiling.patches[: ex.batch]])
+    ex.run_patch_batch(xs)
+    _sync(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ex.run_patch_batch(xs)
+        _sync(device)
+        wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        for key in ("self_device_time_total", "self_cuda_time_total"):
+            v = getattr(e, key, None)
+            if v:
+                return float(v)
+        return 0.0
+
+    # device-side events only (kernels, copies): the host-side ATen and
+    # runtime rows carry their kernels' time too and would count it twice
+    rows = sorted(((dev_us(e), e.count, e.key) for e in prof.key_averages()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")
+                   and dev_us(e) > 0), reverse=True)
+    busy = sum(r[0] for r in rows) / 1e6
+    print(f"profile: one batch of {xs.shape[0]} patches, wall {wall * 1e3:.3f} ms, "
+          f"device busy {busy * 1e3:.3f} ms ({100 * busy / wall:.1f}% of wall)",
+          flush=True)
+    for us, count, name in rows[:20]:
+        print(f"profile: {us / 1e3:10.3f} ms {count:6d}x  {name[:110]}", flush=True)
+
+
+def plain_pool(smoke, device, net, hw, seed):
+    """Phase 5: the plain-pool plan's subsampling sweep (P³ shifted passes
+    a patch) through ``tiled_apply``, against the dense oracle."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import convnet, planner
+    from repro_torch.volume import tiled_apply
+
+    prims = planner.plan_single(net, hw, use_mpf=False).prims
+    gen = torch.Generator().manual_seed(seed + 2)
+    params = convnet.init_params(net, gen, device=device)
+    params = [None if p is None else (p[0], 0.1 * torch.randn(
+        p[1].shape, generator=gen).to(device)) for p in params]
+    fov, P = net.field_of_view(), net.total_pooling()
+    vol = np.random.default_rng(seed + 2).normal(
+        size=(net.in_channels, 2 * P + 3 + fov - 1, P + fov - 1, P + fov - 1)
+    ).astype(np.float32)
+    from repro_torch import kernels
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = tiled_apply(params, net, vol, prims, 1, batch=2, device=device)
+    dt = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    want = convnet.apply_dense_reference(
+        params, net, torch.from_numpy(vol)[None].to(device))[0].cpu()
+    ok, err = _close(torch.from_numpy(out), want, **E2E)
+    print(f"plain pool: {net.name} prims {prims}, P {P} ({P**3} shifted passes a "
+          f"patch), {tuple(out.shape)} in {dt:.3f} s; launches {json.dumps(counts)}",
+          flush=True)
+    if device.type == "cuda":
+        smoke.check(counts["conv3d"] > 0, f"plain pool: conv3d launched "
+                                          f"{counts['conv3d']} times")
+    smoke.check(ok, f"plain-pool tiled_apply vs dense oracle: max_abs_err {err:.3e} "
+                    f"(atol {E2E['atol']}, rtol {E2E['rtol']}, "
+                    f"max|ref| {float(want.abs().max()):.3f})")
+
+
+def run(device, net, m: int, batch: int, hw, seed: int = 0, *, dense_m: int,
+        plain_net, dense_prims=None):
     """All phases after the build; returns (kernel results, failures)."""
     import numpy as np
     import torch
@@ -376,10 +664,12 @@ def run(device, net, m: int, batch: int, hw, seed: int = 0):
     launches = {name: 0 for name in KERNELS}
     serving = {}
     for fuse_os in (False, True):
-        engine, counts, serving[fuse_os] = serve(
-            smoke, net, plan, params, vols, dense, device, fuse_os,
-            engine=engine if not fuse_os else None,
+        label = f"fuse_os={fuse_os}"
+        engine, counts, serving[label] = serve(
+            smoke, label, REACHED[fuse_os], net, plan, params, vols, dense, device,
+            engine=engine if not fuse_os else None, fuse_os=fuse_os,
         )
+        smoke.check(engine.executor.fuse_os == fuse_os, f"{label}: executor mode")
         for name in launches:
             launches[name] += counts[name]
         if not fuse_os:
@@ -387,10 +677,16 @@ def run(device, net, m: int, batch: int, hw, seed: int = 0):
             if device.type == "cuda":
                 torch.cuda.empty_cache()
     offline(smoke, engine.executor, vols[0], dense[0], device)
+    del engine, dense
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    results.update(run_dense(smoke, device, net, params, hw, dense_m, batch,
+                             launches, serving, gen, prims=dense_prims))
+    plain_pool(smoke, device, plain_net, hw, seed)
     for name, r in results.items():
         r["launches"] = launches[name]
-    print("serving: " + json.dumps({f"fuse_os={k}": v for k, v in serving.items()}),
-          flush=True)
+    print("serving: " + json.dumps(serving), flush=True)
     return results, smoke.failures
 
 
@@ -416,7 +712,7 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
-    from repro_torch.configs.znni_nets import N337
+    from repro_torch.configs.znni_nets import BENCH_NET, N337
     from repro_torch.core.hw import H100_SXM
     from repro_torch.kernels import build
 
@@ -425,7 +721,8 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t:.1f} s", flush=True)
 
     device = torch.device("cuda", 0)
-    results, failures = run(device, N337, m=4, batch=2, hw=H100_SXM)
+    results, failures = run(device, N337, m=4, batch=2, hw=H100_SXM, dense_m=8,
+                            plain_net=BENCH_NET)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = results.get(name, {})

@@ -2,14 +2,17 @@
 
 pruned_fft   — pruned forward/inverse FFTs on torch.fft
 bias         — the one bias-broadcast rule
-fft_conv     — FFT conv with cached kernel spectra (+ fused conv/pool pair)
-overlap_save — overlap-save segmentation and the segment-spectra applies
-mpf          — max-pooling fragments + recombination
+direct_conv  — direct 'valid' conv (+ bias)
+fft_conv     — FFT convs: data-/task-parallel, cached kernel spectra,
+               and the fused conv/pool pairs
+overlap_save — overlap-save segmentation, the segment-spectra applies and
+               the self-contained segmented conv
+mpf          — max-pooling fragments + recombination, plain pooling
 primitives   — primitive registry (cost+setup+apply) and CompiledPlan
 cost_model   — Tables I/II analytics feeding the planner
 planner      — memory-constrained throughput maximization (+ strategies)
 pipeline     — the two-stage pipeline's steady-state cadence
-convnet      — parameters and the dense sliding-window oracle
+convnet      — parameters, apply_plan and the dense sliding-window oracle
 hw           — hardware model constants (H100 SXM target)
 """
 
@@ -17,6 +20,7 @@ from . import (  # noqa: F401
     bias,
     convnet,
     cost_model,
+    direct_conv,
     fft_conv,
     hw,
     mpf,

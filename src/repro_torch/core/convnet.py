@@ -5,6 +5,10 @@
 * ``params_from_numpy``     — carries weights across from the reference
                               package: numpy ``(w, b)`` pairs (``None`` at
                               pools) become the port's tensors.
+* ``apply_plan``            — run the net with the per-layer primitives a
+                              plan chose (MPF fragments multiply the batch),
+                              a walk over the ``core.primitives`` registry;
+                              ``apply_layer_range`` runs a slice of it.
 * ``apply_dense_reference`` — the dense sliding-window output via dilated
                               convs and dilated max filters (the semantics
                               MPF must reproduce), with TF32 off.
@@ -16,7 +20,7 @@ from __future__ import annotations
 
 import itertools
 import math
-from typing import List, Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -24,6 +28,8 @@ import torch.nn.functional as F
 
 from ..configs.base import ConvNetConfig
 from ..kernels.dispatch import DeviceLike, resolve_device
+from .mpf import recombine_fragments
+from .primitives import apply_prepared_range, prepare_layers
 
 
 def init_params(
@@ -70,6 +76,63 @@ def params_from_numpy(params, device: DeviceLike = None) -> List[Optional[tuple]
             torch.tensor(np.asarray(b, np.float32), device=dev),
         ))
     return out
+
+
+def plan_pools(net: ConvNetConfig, plan_prims: Sequence[str]) -> List[int]:
+    """MPF pool sizes in network order for a primitive assignment."""
+    return [
+        net.layers[i].size
+        for i, prim in enumerate(plan_prims)
+        if net.layers[i].kind == "pool" and prim == "mpf"
+    ]
+
+
+def apply_layer_range(
+    params,
+    net: ConvNetConfig,
+    x: torch.Tensor,
+    plan_prims: Sequence[str],
+    lo: int = 0,
+    hi: Optional[int] = None,
+    *,
+    use_kernels: Optional[bool] = None,
+) -> torch.Tensor:
+    """Run layers [lo, hi) with the plan's primitives, without recombining.
+
+    ReLU placement follows the whole-net rule (no activation after the
+    net's final conv), so chaining ranges composes to
+    ``apply_plan(..., recombine=False)``.  Each layer's one-time setup runs
+    per call; long-lived callers compile once (``primitives.compile_plan``).
+    """
+    prepared = prepare_layers(params, net, plan_prims, tuple(x.shape[-3:]), lo, hi)
+    return apply_prepared_range(net, prepared, x, use_kernels=use_kernels)
+
+
+def apply_plan(
+    params,
+    net: ConvNetConfig,
+    x: torch.Tensor,
+    plan_prims: Sequence[str],
+    *,
+    use_kernels: Optional[bool] = None,
+    recombine: bool = True,
+) -> torch.Tensor:
+    """Run the net; ``plan_prims[i]`` is the primitive name of layer i.
+
+    x (S, in_ch, n³).  With MPF layers the batch grows by p³ each pool; if
+    ``recombine``, fragments are folded back into the dense sliding-window
+    output (S, out_ch, dense³).
+    """
+    S = x.shape[0]
+    x = apply_layer_range(params, net, x, plan_prims, use_kernels=use_kernels)
+    pools = plan_pools(net, plan_prims)
+    if recombine and pools:
+        x = recombine_fragments(x, pools, S)
+    return x
+
+
+def apply_with_plan(params, net: ConvNetConfig, x, plan, **kw):
+    return apply_plan(params, net, x, [c.prim for c in plan.choices], **kw)
 
 
 def _dilated_max_filter(x: torch.Tensor, p: int, d: int) -> torch.Tensor:

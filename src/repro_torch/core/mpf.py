@@ -8,6 +8,7 @@ output.  Input constraint: (n + 1) % p == 0 per axis.
 
 from __future__ import annotations
 
+import itertools
 from typing import Optional, Sequence
 
 import torch
@@ -31,6 +32,20 @@ def mpf(x: torch.Tensor, p: int, *, use_kernels: Optional[bool] = None) -> torch
     index s*p³ + flat(o).
     """
     return mpf_ops.mpf_pool(x.contiguous(), p, use_kernels=use_kernels)
+
+
+def naive_sliding_pool(x: torch.Tensor, p: int) -> torch.Tensor:
+    """The baseline 'compute all subsamplings' primitive: a dense max
+    filter, window p, stride 1 — out[v] = max(x[v : v+p]) per axis, output
+    size n - p + 1.  The MPF fragments, recombined, equal this."""
+    n = x.shape[2:]
+    out = tuple(ni - p + 1 for ni in n)
+    y = torch.full(tuple(x.shape[:2]) + out, -torch.inf, dtype=x.dtype, device=x.device)
+    for ox, oy, oz in itertools.product(range(p), repeat=3):
+        y = torch.maximum(
+            y, x[:, :, ox : ox + out[0], oy : oy + out[1], oz : oz + out[2]]
+        )
+    return y
 
 
 def recombine_fragments(

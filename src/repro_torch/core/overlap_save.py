@@ -235,12 +235,32 @@ def os_apply_tail_from_spectra(
     return add_channel_bias(x, b)
 
 
-def overlap_save_conv(x, W, b, spec, *, use_kernels=None, fprime_chunk=None):
-    """Self-contained segmented conv (the registry apply outside the
-    executor).  Its kernel, ``os_segment_conv_planes``, is not ported yet."""
-    raise NotImplementedError(
-        "overlap_save_conv needs the os_segment_conv kernel "
-        "(ROADMAP.md Queue 2 item 5)"
+def overlap_save_conv(
+    x: torch.Tensor,
+    W: torch.Tensor,
+    b: Optional[torch.Tensor],
+    spec: OverlapSaveSpec,
+    *,
+    use_kernels: Optional[bool] = None,
+    fprime_chunk: Optional[int] = None,
+) -> torch.Tensor:
+    """Self-contained segmented 'valid' cross-correlation (no spectra reuse).
+
+    The registry ``apply`` for layers the executor cannot amortize (deeper
+    layers, one-shot ``conv_apply`` callers, the plain-pool subsampling
+    sweep).  x (S, f, *spec.n) -> (S, f', *spec.out).  On the kernel path
+    the segment FFT moves into the fused segment pipeline
+    (``os_segment_conv``: forward DFT passes + MAD + bias + inverse),
+    whose output-channel blocking is its own (``fprime_chunk`` does not
+    apply there).
+    """
+    if resolve_use_kernels(use_kernels, x):
+        return seg_ops.os_segment_conv(
+            x.to(torch.float32).contiguous(), W, b, spec, use_kernels=True
+        )
+    return os_apply_from_spectra(
+        os_input_spectra(x, spec), W, b, spec,
+        use_kernels=use_kernels, fprime_chunk=fprime_chunk,
     )
 
 

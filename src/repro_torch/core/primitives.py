@@ -10,14 +10,9 @@ Each registry entry bundles the three faces of a primitive:
 
 ``CompiledPlan`` binds a plan's per-layer primitives to ``PreparedLayer``s
 once, so cached kernel spectra are computed once per plan and reused
-across every patch and batch size.
-
-Ported so far: the three primitives of the deployed volume path —
-``overlap_save`` (its setup; the executor applies it from cached segment
-spectra), ``fft_cached`` and ``mpf``.  The others keep their cost, so the
-planner prices every assignment as the reference does, but their setup and
-apply raise ``NotImplementedError`` naming the ROADMAP.md item that ports
-them.
+across every patch and batch size; ``CompiledPlan.apply`` walks them
+(``apply_prepared_range``), optionally fusing each ``fft_cached`` conv +
+``mpf`` pool pair into one ``fft_conv_pool_fused`` call (``fuse_pairs``).
 """
 
 from __future__ import annotations
@@ -39,8 +34,15 @@ from .cost_model import (
     mpf_cost,
     pool_cost,
 )
-from .fft_conv import fft_conv_with_precomputed, precompute_kernel_fft
-from .mpf import mpf
+from .direct_conv import direct_conv
+from .fft_conv import (
+    fft_conv_data_parallel,
+    fft_conv_pool_fused,
+    fft_conv_task_parallel,
+    fft_conv_with_precomputed,
+    precompute_kernel_fft,
+)
+from .mpf import max_pool3d, mpf, recombine_fragments
 from .overlap_save import OverlapSaveSpec, overlap_save_conv, plan_overlap_save
 from .pruned_fft import fft_optimal_shape
 
@@ -136,13 +138,37 @@ def _ksize(w: torch.Tensor) -> Tuple[int, int, int]:
     return (int(kx), int(ky), int(kz))
 
 
-def _not_ported(name: str, item: str):
-    def fail(*args, **kwargs):
-        raise NotImplementedError(
-            f"primitive {name!r} is not ported yet (ROADMAP.md {item})"
+def _setup_direct(w, b, n, *, index: int = -1) -> PreparedLayer:
+    return PreparedLayer(
+        index, "conv", "direct", kernel_size=_ksize(w), state={"w": w, "b": b}
+    )
+
+
+def _apply_direct(pl, x, state, *, use_kernels: Optional[bool] = None):
+    return direct_conv(x, state["w"], state["b"], use_kernels=use_kernels)
+
+
+def _setup_fft(name: str):
+    def setup(w, b, n, *, index: int = -1) -> PreparedLayer:
+        fft_shape = fft_optimal_shape(tuple(int(s) for s in n))
+        return PreparedLayer(
+            index, "conv", name,
+            fft_shape=fft_shape, kernel_size=_ksize(w), state={"w": w, "b": b},
         )
 
-    return fail
+    return setup
+
+
+def _apply_fft_data(pl, x, state, *, use_kernels: Optional[bool] = None):
+    return fft_conv_data_parallel(
+        x, state["w"], state["b"], fft_shape=pl.fft_shape, use_kernels=use_kernels
+    )
+
+
+def _apply_fft_task(pl, x, state, *, use_kernels: Optional[bool] = None):
+    return fft_conv_task_parallel(
+        x, state["w"], state["b"], fft_shape=pl.fft_shape, use_kernels=use_kernels
+    )
 
 
 def _setup_fft_cached(
@@ -200,21 +226,26 @@ def _apply_mpf(pl, x, state, *, use_kernels: Optional[bool] = None):
     return mpf(x, pl.pool_size, use_kernels=use_kernels)
 
 
-_DENSE = "Queue 1 item 4"
-register_conv_primitive(Primitive(
-    "direct", "conv", conv_direct_cost,
-    _not_ported("direct", "Queue 1 item 4, Queue 2 item 6"),
-    _not_ported("direct", "Queue 1 item 4, Queue 2 item 6"),
-))
-register_conv_primitive(Primitive(
-    "fft_data", "conv", conv_fft_data_parallel_cost,
-    _not_ported("fft_data", _DENSE), _not_ported("fft_data", _DENSE),
-))
+def _setup_pool(p, n, *, index: int = -1) -> PreparedLayer:
+    if any(int(x) % p for x in n):
+        raise ValueError(f"plain pool needs n%p==0, got n={tuple(n)}, p={p}")
+    return PreparedLayer(index, "pool", "pool", pool_size=int(p), state={})
+
+
+def _apply_pool(pl, x, state, *, use_kernels: Optional[bool] = None):
+    return max_pool3d(x, pl.pool_size)
+
+
 register_conv_primitive(
-    Primitive(
-        "fft_task", "conv", conv_fft_task_parallel_cost,
-        _not_ported("fft_task", _DENSE), _not_ported("fft_task", _DENSE),
-    ),
+    Primitive("direct", "conv", conv_direct_cost, _setup_direct, _apply_direct)
+)
+register_conv_primitive(
+    Primitive("fft_data", "conv", conv_fft_data_parallel_cost,
+              _setup_fft("fft_data"), _apply_fft_data)
+)
+register_conv_primitive(
+    Primitive("fft_task", "conv", conv_fft_task_parallel_cost,
+              _setup_fft("fft_task"), _apply_fft_task),
     aliases=("fft",),
 )
 register_conv_primitive(
@@ -226,9 +257,16 @@ register_conv_primitive(
               _setup_overlap_save, _apply_overlap_save)
 )
 register_pool_primitive(Primitive("mpf", "pool", mpf_cost, _setup_mpf, _apply_mpf))
-register_pool_primitive(Primitive(
-    "pool", "pool", pool_cost, _not_ported("pool", _DENSE), _not_ported("pool", _DENSE),
-))
+register_pool_primitive(Primitive("pool", "pool", pool_cost, _setup_pool, _apply_pool))
+
+
+def conv_apply(name: str, x, w, b=None, *, use_kernels: Optional[bool] = None):
+    """Apply a conv primitive without retained state (setup inlined), for
+    callers that cannot reuse prepared state across calls.  ``name`` may be
+    an alias (e.g. ``"fft"``)."""
+    prim = conv_primitive(name)
+    pl = prim.setup(w, b, tuple(int(s) for s in x.shape[-3:]))
+    return prim.apply(pl, x, pl.state, use_kernels=use_kernels)
 
 
 # ---------------------------------------------------------------------------
@@ -308,20 +346,73 @@ def prepare_layers(
     return tuple(prepared)
 
 
+def apply_prepared_range(
+    net: ConvNetConfig,
+    prepared: Sequence[PreparedLayer],
+    x,
+    *,
+    states: Optional[Sequence[Any]] = None,
+    use_kernels: Optional[bool] = None,
+    fuse_pairs: bool = False,
+):
+    """Walk prepared layers over ``x``: the thin core of plan execution.
+
+    ReLU follows the whole-net rule (no activation after the net's final
+    conv), so chaining ranges composes to a full forward pass.  ``states``
+    (when given) substitutes each layer's state dict.
+
+    With ``fuse_pairs`` a consecutive ``fft_cached`` conv + ``mpf`` pool
+    pair (not the net's last conv) runs as one ``fft_conv_pool_fused``
+    call (bias on the MAD's DC bin, inverse-window crop folded into the
+    pool, ReLU after the pool) instead of two primitive applies.
+    """
+    last_conv = max(i for i, l in enumerate(net.layers) if l.kind == "conv")
+    prepared = tuple(prepared)
+    states = [pl.state for pl in prepared] if states is None else list(states)
+    i = 0
+    while i < len(prepared):
+        pl = prepared[i]
+        st = states[i]
+        nxt = prepared[i + 1] if i + 1 < len(prepared) else None
+        if (
+            fuse_pairs
+            and pl.kind == "conv"
+            and pl.prim == "fft_cached"
+            and pl.index != last_conv  # the fused path applies the ReLU
+            and nxt is not None
+            and nxt.kind == "pool"
+            and nxt.prim == "mpf"
+            and nxt.index == pl.index + 1
+        ):
+            x = fft_conv_pool_fused(
+                x, st["W"], st["b"],
+                fft_shape=pl.fft_shape, k=pl.kernel_size, p=nxt.pool_size,
+                use_kernels=use_kernels, fprime_chunk=pl.fprime_chunk,
+            )
+            i += 2
+            continue
+        x = resolve_primitive(pl).apply(pl, x, st, use_kernels=use_kernels)
+        if pl.kind == "conv" and pl.index != last_conv:
+            x = torch.relu(x)
+        i += 1
+    return x
+
+
 @dataclass
 class CompiledPlan:
     """A plan bound to per-layer prepared state — setup done exactly once.
 
     ``layers[i]`` is layer ``i``'s ``PreparedLayer``; ``states`` is the
-    matching list of state dicts.  The dense walk over the prepared layers
-    (``apply``/``apply_range``) comes with the dense-path slice.
+    matching list of state dicts.  ``apply``/``apply_range`` walk the
+    prepared layers.  ``use_kernels`` is the caller's tri-state, handed to
+    every wrapper; ``None`` resolves per tensor.
     """
 
     net: ConvNetConfig
     prims: Tuple[str, ...]
     layers: Tuple[PreparedLayer, ...]
     n_in: int
-    use_kernels: bool = False
+    use_kernels: Optional[bool] = None
     fuse_pairs: bool = False
     plan: Optional[object] = None
 
@@ -336,6 +427,26 @@ class CompiledPlan:
             pl.pool_size for pl in self.layers
             if pl.kind == "pool" and pl.prim == "mpf"
         )
+
+    def apply_range(self, x, lo: int = 0, hi: Optional[int] = None, *, states=None):
+        if hi is None:
+            hi = len(self.layers)
+        if states is not None:
+            states = states[lo:hi]
+        return apply_prepared_range(
+            self.net, self.layers[lo:hi], x,
+            states=states, use_kernels=self.use_kernels,
+            fuse_pairs=self.fuse_pairs,
+        )
+
+    def apply(self, x, *, states=None, recombine: bool = True):
+        """Full forward over a patch batch; recombine MPF fragments if asked."""
+        S = x.shape[0]
+        x = self.apply_range(x, states=states)
+        pools = self.mpf_pools
+        if recombine and pools:
+            x = recombine_fragments(x, pools, S)
+        return x
 
 
 def compile_plan(
@@ -353,17 +464,17 @@ def compile_plan(
 ) -> CompiledPlan:
     """Bind primitives to prepared per-layer state for one patch geometry.
 
-    Give either ``n_in`` or the fragment size ``m``.  ``use_kernels=None``
-    resolves against the device the weights live on; ``fuse_pairs=None``
-    follows the resolved ``use_kernels``.
+    Give either ``n_in`` or the fragment size ``m``.  ``fuse_pairs=None``
+    follows ``use_kernels`` resolved against the device the weights live
+    on: the fused conv+pool epilogue switches on with the kernels.
     """
     prims = tuple(prims)
     if len(prims) != len(net.layers):
         raise ValueError(f"{len(prims)} prims for {len(net.layers)} layers")
     w0 = next(p[0] for p in params if p is not None)
-    use_kernels = resolve_use_kernels(use_kernels, w0)
+    resolved = resolve_use_kernels(use_kernels, w0)  # raises for True on the CPU
     if fuse_pairs is None:
-        fuse_pairs = use_kernels
+        fuse_pairs = resolved
     if n_in is None:
         if m is None:
             raise ValueError("need n_in or m")
@@ -374,4 +485,22 @@ def compile_plan(
     )
     return CompiledPlan(
         net, prims, layers, int(n_in), use_kernels, bool(fuse_pairs), plan
+    )
+
+
+def compile_from_plan(
+    params,
+    net: ConvNetConfig,
+    plan,
+    *,
+    use_kernels: Optional[bool] = None,
+    fuse_pairs: Optional[bool] = None,
+    fprime_chunk=None,
+) -> CompiledPlan:
+    """CompiledPlan for a ``planner.Plan`` (geometry read off the plan)."""
+    return compile_plan(
+        params, net, prims=plan.prims, n_in=plan.n_in,
+        use_kernels=use_kernels, fuse_pairs=fuse_pairs, fprime_chunk=fprime_chunk,
+        plan=plan,
+        overlap_seg=plan.core if plan.prims[0] == "overlap_save" else None,
     )

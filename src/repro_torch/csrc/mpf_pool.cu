@@ -1,9 +1,10 @@
 // Max-pooling fragments (ZNNi section V).
 //
-// Replaces the Pallas kernel ``mpf_pool_blocked`` of
-// src/repro/kernels/mpf_pool/kernel.py, and through its window extents
-// (mx, my, mz) also covers ``mpf_pool_window_blocked``: the fragment
-// extents come from the window, not from the input shape.
+// Replaces the Pallas kernels ``mpf_pool_blocked`` and, through its
+// window extents (mx, my, mz), ``mpf_pool_window_blocked`` of
+// src/repro/kernels/mpf_pool/kernel.py: for the windowed form the wrapper
+// (ops.mpf_pool_window) passes the fragment extents of the window and the
+// uncropped input extents, so the crop never materializes.
 //
 //   out[s*p^3 + o, c, v] = max_{d in [0,p)^3} x[s, c, o + p*v + d]
 //   with o = (ox, oy, oz), ox = o / p^2, oy = (o / p) % p, oz = o % p

@@ -43,6 +43,11 @@ SIGNATURES = {
     "mpf_pool_f32": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     # F, W, nb, ea, eb, mr, mi, Z, Y1, Y2, out, NQ, f, fp, A, B, C, s, oy, oz, stream
     "os_segment_f32": (_P,) * 11 + (_I,) * 9 + (_P,),
+    # x, fz, fy, fx, W, nb, ea, eb, mr, mi, bufA, bufB, bufC, out,
+    # N, Q, f, fp, E, seg, nx, ny, nz, A, B, C, s, oy, oz, stream
+    "os_segment_conv_f32": (_P,) * 14 + (_I,) * 15 + (_P,),
+    # x, w, out, S, f, fp, nx, ny, nz, kx, ky, kz, stream
+    "conv3d_f32": (_P,) * 3 + (_I,) * 9 + (_P,),
 }
 
 

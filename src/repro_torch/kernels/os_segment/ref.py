@@ -1,8 +1,9 @@
 """Plain PyTorch version of the fused overlap-save segment pipeline.
 
-Per aligned segment of ``core/overlap_save.py``'s grid: cached-kernel
-complex MAD over input channels -> channel bias folded into the spectrum
-DC bin -> inverse transform -> valid crop.  The same math as the unfused
+Per aligned segment of ``core/overlap_save.py``'s grid: (from raw input,
+the segment FFT first) -> cached-kernel complex MAD over input channels
+-> channel bias folded into the spectrum DC bin -> inverse transform ->
+valid crop.  The same math as the unfused
 ``os_apply_from_spectra`` + ``add_channel_bias`` chain (the DC-bin bias of
 a constant IS the spatial bias after the normalized inverse).
 """
@@ -26,6 +27,20 @@ def _irfftn_crop(
     Y = torch.fft.ifft(Z, dim=-3)[..., :la, :, :]
     Y = torch.fft.ifft(Y, dim=-2)[..., :, :lb, :]
     return torch.fft.irfft(Y, n=nc, dim=-1)[..., :lc]
+
+
+def _segment_spectra(x: torch.Tensor, spec) -> torch.Tensor:
+    """Aligned segment spectra of raw input x (S, f, *spec.n): returns
+    (S, n_seg, f, na, nb, nc''), the tail window zero-padded."""
+    if spec.input_pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, spec.input_pad))
+    segs = torch.stack(
+        [x[:, :, st : st + spec.seg_extent] for st in spec.starts], dim=1
+    )
+    na, nb, nc = (int(d) for d in spec.fft_shape)
+    Z = torch.fft.rfft(segs.to(torch.float32), n=nc, dim=-1)
+    Z = torch.fft.fft(Z, n=nb, dim=-2)
+    return torch.fft.fft(Z, n=na, dim=-3)
 
 
 def os_segment_fused(
@@ -68,3 +83,16 @@ def os_segment_fused_tail(
 ) -> torch.Tensor:
     """Trailing-segments form (the strip path's tail MAD)."""
     return os_segment_fused(F, W, b, spec, int(out_cols))
+
+
+def os_segment_conv(
+    x: torch.Tensor,
+    W: torch.Tensor,
+    b: Optional[torch.Tensor],
+    spec,
+) -> torch.Tensor:
+    """From raw input: segment FFT + fused MAD/bias/inverse/crop.
+
+    x (S, f, *spec.n) real -> (S, f', *spec.out).
+    """
+    return os_segment_fused(_segment_spectra(x, spec), W, b, spec)

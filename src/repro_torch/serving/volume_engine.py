@@ -49,10 +49,11 @@ offline sweeps, not by the tick loop, which serves every plan through
 the one fused step.
 
 Port notes: ``device=None`` means the card (the executor raises without
-one); ``use_kernels`` is the port's kernel tri-state.  The dense tick path
-(plans without overlap-save reuse), host-staged streaming and per-request
-sweep axes other than the executor's raise ``NotImplementedError`` in the
-executor until their slices land.
+one); ``use_kernels`` is the port's kernel tri-state.  Plans without
+overlap-save reuse tick through the executor's dense walk over patches
+cut from the request's host volume.  Host-staged streaming and
+per-request sweep axes other than the executor's raise
+``NotImplementedError`` in the executor until their slices land.
 """
 
 from __future__ import annotations

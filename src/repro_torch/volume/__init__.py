@@ -2,11 +2,13 @@
 
 ``tiler``    — patch geometry (FOV overlap, shifted edge patches), the
                sweep-cache simulations behind ``predict_sweep_counts``.
-``executor`` — ``PlanExecutor``: the deployed overlap-save + deep-reuse
-               sweep, with the device ledger.
+``executor`` — ``PlanExecutor``: the dense walk of any plan (MPF or the
+               plain-pool subsampling sweep) and the overlap-save +
+               deep-reuse sweep, with the device ledger; ``tiled_apply``
+               for one-shot use.
 """
 
-from .executor import PlanExecutor  # noqa: F401
+from .executor import PlanExecutor, tiled_apply  # noqa: F401
 from .tiler import (  # noqa: F401
     PatchSpec,
     VolumeTiling,

@@ -9,9 +9,18 @@ input voxels and contributes a ``core³`` dense block; adjacent patches
 overlap by FOV-1 input voxels; edge patches are *shifted*; the patch
 stream is x-major with non-decreasing x.
 
-This port carries the configuration the volume runtime deploys: the plan's
-FIRST conv is ``overlap_save`` with its segment grid pinned to the patch
-core, deeper convs are ``fft_cached``, pools are ``mpf``.
+Two kinds of plan run here.
+
+Dense walk — plans whose first conv is not ``overlap_save``, and plans
+with plain pools: ``run_patch_batch(xs)`` runs ``CompiledPlan.apply`` over
+a stacked batch of raw patches; with ``fuse_pairs`` (on with the kernels)
+each ``fft_cached``+``mpf`` pair runs as one fused call.  MPF plans emit
+each patch's ``core³`` block in one walk (fragments recombined);
+plain-pool plans sweep the P³ shifted subsamplings of each patch (the
+paper's naive outer loop) and interleave them into the core.
+
+Overlap-save reuse — the FIRST conv is ``overlap_save`` with its segment
+grid pinned to the patch core, and the pools are ``mpf``:
 
 * Layer-0 spectra reuse: within one sweep (``begin_sweep``/``end_sweep``)
   segment spectra are cached by ``tiler.segment_keys``, so the FOV overlap
@@ -30,24 +39,24 @@ core, deeper convs are ``fft_cached``, pools are ``mpf``.
   counts them; ``os_fused_segments`` is the number of segments the
   os_segment CUDA kernel computed during ``run``, read off its wrapper's
   counter (equal to ``os_mad_segments`` on the card, else 0).
-* ``_DeviceLedger`` accounts every executor-managed device buffer;
-  ``last_stats["peak_device_bytes"]`` reports its per-sweep peak, which
-  ``predict_memory`` reproduces.
+
+Both keep a ``_DeviceLedger`` of every executor-managed device buffer;
+``last_stats["peak_device_bytes"]`` reports its per-sweep peak, which
+``predict_memory`` reproduces for reuse plans.
 
 PyTorch runs eagerly, so nothing is traced; the executor still records
 the distinct step keys the reference's jit would specialize on, so
 ``last_stats["retraces"]`` keeps its meaning.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): the dense walk of non-reuse plans (``run_patch_batch(xs)``,
-``tiled_apply``), host-staged streaming (``ram_budget``/``streaming``),
-per-request sweep axes other than the executor's, the boundary handoff of
-the sharded fleet, tuned configs, and the ``hetero``/``pipeline2`` split
-strategies.
+item): host-staged streaming (``ram_budget``/``streaming``), per-request
+sweep axes other than the executor's, the boundary handoff of the sharded
+fleet, tuned configs, and the ``hetero``/``pipeline2`` split strategies.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
 import time
 from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
@@ -76,6 +85,7 @@ from .tiler import (
     SweepCounts,
     VolumeTiling,
     chunk_patches,
+    extract_patch,
     pad_volume,
     predict_sweep_counts,
     sweep_perm,
@@ -837,17 +847,37 @@ class PlanExecutor:
         return min(s, self.batch)
 
     def run_patch_batch(self, xs: Optional[np.ndarray], *, meta=None) -> np.ndarray:
-        """Patch batch -> (S, out_ch, core³) dense cores.
+        """(S, f, extent³) patches -> (S, out_ch, core³) dense cores.
 
         ``meta`` (overlap-save reuse): per-patch ``(sweep_token,
         segment_keys, patch_start)`` naming each patch's layer-0 segments
-        by absolute volume coordinates; ``xs`` may then be None.  The
-        self-contained walk over raw patches ``xs`` is the dense path.
+        by absolute volume coordinates; ``xs`` may then be None.  Without
+        ``meta`` the self-contained dense walk runs over the raw patches.
         """
         if self._os_reuse and meta is not None:
             self._seen_batch_sizes.add(len(meta))
             return self._run_os_batch(meta)
-        raise _not_ported("the dense patch walk", "Queue 1 item 6a")
+        S = xs.shape[0]
+        self._seen_batch_sizes.add(S)
+        if self.uses_mpf:
+            self._record_trace(("walk", xs.shape))
+            y = self.compiled.apply(self._upload(xs), recombine=True)
+            self._ledger.transient(xs.nbytes + _nbytes(y))
+            return y.cpu().numpy()
+        # baseline: all-subsamplings outer loop (P³ shifted passes)
+        out = np.empty((S, self.out_channels) + (self.core,) * 3, np.float32)
+        n = self.n_in
+        for ox, oy, oz in itertools.product(range(self.P), repeat=3):
+            sub = xs[:, :, ox : ox + n, oy : oy + n, oz : oz + n]
+            yd = self.compiled.apply(self._upload(sub), recombine=False)
+            self._ledger.transient(sub.nbytes + _nbytes(yd))
+            out[:, :, ox :: self.P, oy :: self.P, oz :: self.P] = yd.cpu().numpy()
+        return out
+
+    def _upload(self, xs: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(
+            np.ascontiguousarray(xs, np.float32), device=self.device
+        )
 
     # -- volume sweep --------------------------------------------------------
 
@@ -859,11 +889,13 @@ class PlanExecutor:
         vol = np.asarray(vol, np.float32)
         axis = self.sweep_axis if sweep_axis is None else int(sweep_axis)
         if axis != self.sweep_axis:
+            if not self._os_reuse:
+                raise ValueError(
+                    "per-run sweep_axis override needs an overlap-save reuse plan"
+                )
             raise _not_ported(
                 "a sweep axis other than the executor's", "Queue 1 item 6f"
             )
-        if not self._os_reuse:
-            raise _not_ported("the dense patch walk", "Queue 1 item 6a")
         tiling = self.tiling_for(vol.shape[1:], sweep_axis=axis)
         padded = pad_volume(vol, tiling)  # working frame (sweep axis first)
         out = np.empty(
@@ -877,7 +909,7 @@ class PlanExecutor:
         self._ledger.begin_run()  # peak scoped to this sweep
         t0 = time.perf_counter()
         # the device upload is real per-volume work, so it is timed
-        sweep = self.begin_sweep(padded, sweep_axis=axis)
+        sweep = self.begin_sweep(padded, sweep_axis=axis) if self._os_reuse else None
         try:
             n_batches, padded_patches = self._run_batched(padded, tiling, out, sweep)
         finally:
@@ -905,6 +937,7 @@ class PlanExecutor:
             "peak_device_bytes": self._ledger.peak,
             "predicted_peak_device_bytes": (
                 self.predict_memory(vol.shape[1:], sweep_axis=axis).device_bytes
+                if self._os_reuse else float("nan")
             ),
         }
         return out
@@ -961,17 +994,53 @@ class PlanExecutor:
             )
 
     def _run_batched(self, padded, tiling, out, sweep):
-        """The reuse sweep: chunks capped at x-plane boundaries so every
-        aligned interior patch's left neighbour completed in an EARLIER
-        chunk; each chunk's walk starts from cached/computed segment
-        spectra of the sweep's resident volume."""
+        """Sweep the patches in batches of ``batch``; a ragged tail runs as a
+        smaller batch.
+
+        Reuse sweep (``sweep`` set): chunks capped at x-plane boundaries so
+        every aligned interior patch's left neighbour completed in an
+        EARLIER chunk; each chunk's walk starts from cached/computed
+        segment spectra of the sweep's resident volume.  Dense sweep: the
+        patches are cut from the padded host volume and walked as raw
+        input.
+        """
+        S = self.batch
         specs = tiling.patches
         n_batches = 0
-        chunks = [[specs[i] for i in idxs] for idxs in chunk_patches(tiling, self.batch)]
+        if sweep is not None:
+            chunks = [[specs[i] for i in idxs] for idxs in chunk_patches(tiling, S)]
+        else:
+            chunks = [list(specs[i : i + S]) for i in range(0, len(specs), S)]
         for chunk in chunks:
-            meta = [(sweep, tiling.segment_keys(s), s.start) for s in chunk]
-            ys = self.run_patch_batch(None, meta=meta)
+            if sweep is not None:
+                meta = [(sweep, tiling.segment_keys(s), s.start) for s in chunk]
+                ys = self.run_patch_batch(None, meta=meta)
+            else:
+                xs = np.stack(
+                    [extract_patch(padded, s, tiling.extent) for s in chunk]
+                )
+                ys = self.run_patch_batch(xs)
             for spec, y in zip(chunk, ys):
                 self.write_core(out, tiling, spec, y)
             n_batches += 1
         return n_batches, 0
+
+
+def tiled_apply(
+    params,
+    net: ConvNetConfig,
+    vol: np.ndarray,
+    prims: Sequence[str],
+    m: int,
+    *,
+    batch: int = 1,
+    use_kernels: Optional[bool] = None,
+    device: DeviceLike = None,
+) -> np.ndarray:
+    """One-shot tiled inference without a Plan (tests, notebooks);
+    ``device=None`` means the card."""
+    ex = PlanExecutor(
+        params, net, prims=prims, m=m, batch=batch, use_kernels=use_kernels,
+        device=device,
+    )
+    return ex.run(vol)

@@ -120,8 +120,13 @@ def test_overlap_save_applies_from_spectra(fprime_chunk):
         )
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     assert overlap_save.shared_segments(spec, 5) == jax_os.shared_segments(jspec, 5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        overlap_save.overlap_save_conv(_t(x), W, _t(b), spec)
+    # the self-contained apply: segment FFTs, then the same MAD + inverse
+    got = overlap_save.overlap_save_conv(_t(x), W, _t(b), spec, fprime_chunk=fprime_chunk)
+    want = jax_os.overlap_save_conv(
+        jnp.asarray(x), jW, jnp.asarray(b), jspec, use_pallas=False,
+        fprime_chunk=fprime_chunk,
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 def test_slice_segment_spectra_matches_reference():

@@ -20,6 +20,8 @@ MODULES = (
     "repro_torch.configs",
     "repro_torch.core",
     "repro_torch.kernels",
+    "repro_torch.kernels.direct_conv3d",
+    "repro_torch.core.direct_conv",
     "repro_torch.volume",
     "repro_torch.serving",
 )

@@ -5,7 +5,9 @@ wrappers — the Pallas kernel in interpret mode (``use_pallas=True``) and
 its XLA oracle (``use_pallas=False``) — and through the port's wrappers on
 CPU tensors, which run the plain PyTorch versions.  Tolerance: the
 reference's per-kernel ``atol=1e-4, rtol=1e-4`` (``tests/test_kernels.py``);
-MPF is a max, so exact.  A wrapper asked for the CUDA kernel on a CPU
+MPF is a max, so exact.  The direct conv and the from-raw-input segment
+conv take the reference's ``atol=1e-3, rtol=1e-4`` (``tests/test_kernels.py``,
+``tests/test_os_fused.py``).  A wrapper asked for the CUDA kernel on a CPU
 tensor must raise.
 """
 
@@ -20,15 +22,20 @@ from repro.core.overlap_save import os_input_spectra as jax_os_input_spectra
 from repro.core.overlap_save import plan_overlap_save as jax_plan_os
 from repro.core.overlap_save import tail_segments
 from repro.kernels.cmul_mad import ops as jax_cmul
+from repro.kernels.direct_conv3d import ops as jax_conv3d
+from repro.kernels.direct_conv3d import ref as jax_conv3d_ref
 from repro.kernels.mpf_pool import ops as jax_mpf
 from repro.kernels.os_segment import ops as jax_seg
+from repro.kernels.os_segment import ref as jax_seg_ref
 from repro_torch.core.overlap_save import plan_overlap_save
 from repro_torch.kernels.cmul_mad import ops as cmul_ops
+from repro_torch.kernels.direct_conv3d import ops as conv3d_ops
 from repro_torch.kernels.mpf_pool import ops as mpf_ops
 from repro_torch.kernels.mpf_pool import ref as mpf_ref
 from repro_torch.kernels.os_segment import ops as seg_ops
 
 TOL = dict(atol=1e-4, rtol=1e-4)
+CONV_TOL = dict(atol=1e-3, rtol=1e-4)
 
 
 def _complex(rng, shape):
@@ -94,9 +101,50 @@ def test_mpf_pool_window_matches_reference(S, f, p, n, window, use_pallas):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("use_pallas", [True, False], ids=["pallas", "xla"])
+@pytest.mark.parametrize("S,f,p,n,window", [
+    (2, 3, 2, (5, 6, 8), (5, 5, 7)),  # the fused pair's uncropped last axis
+    (1, 2, 3, (8, 9, 11), (8, 5, 8)),
+])
+def test_mpf_pool_window_wrapper_matches_reference(S, f, p, n, window, use_pallas):
+    rng = np.random.default_rng(13 + p)
+    x = rng.normal(size=(S, f) + n).astype(np.float32)
+    want = jax_mpf.mpf_pool_window(jnp.asarray(x), p, window, use_pallas=use_pallas)
+    got = mpf_ops.mpf_pool_window(torch.from_numpy(x), p, window)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def test_mpf_pool_rejects_bad_sizes():
     with pytest.raises(ValueError):
         mpf_ops.mpf_pool(torch.zeros((1, 1, 4, 4, 4)), 2)
+    with pytest.raises(ValueError):  # (window+1) % p
+        mpf_ops.mpf_pool_window(torch.zeros((1, 1, 6, 6, 6)), 2, (4, 5, 5))
+    with pytest.raises(ValueError):  # window past the input
+        mpf_ops.mpf_pool_window(torch.zeros((1, 1, 5, 5, 5)), 2, (7, 5, 5))
+
+
+@pytest.mark.parametrize("S,f,fp,n,k", [
+    (2, 1, 5, (7, 6, 9), (2, 2, 2)),  # n337 layer 0's regime: f = 1, k = 2
+    (3, 6, 3, (6, 6, 6), (3, 3, 3)),  # its last layer's: f' = 3, k = 3
+    (1, 2, 9, (5, 7, 6), (3, 2, 1)),  # anisotropic kernel, f' past one tile
+])
+def test_conv3d_matches_reference(S, f, fp, n, k):
+    rng = np.random.default_rng(S + f + fp)
+    x = rng.normal(size=(S, f) + n).astype(np.float32)
+    w = rng.normal(size=(fp, f) + k).astype(np.float32)
+    want = jax_conv3d_ref.conv3d(jnp.asarray(x), jnp.asarray(w))
+    got = conv3d_ops.conv3d(torch.from_numpy(x), torch.from_numpy(w))
+    assert tuple(got.shape) == tuple(want.shape)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **CONV_TOL)
+
+
+def test_conv3d_matches_pallas_interpret():
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(2, 3, 6, 5, 7)).astype(np.float32)
+    w = rng.normal(size=(3, 3, 3, 3, 3)).astype(np.float32)
+    want = jax_conv3d.conv3d(jnp.asarray(x), jnp.asarray(w), use_pallas=True)
+    got = conv3d_ops.conv3d(torch.from_numpy(x), torch.from_numpy(w))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **CONV_TOL)
 
 
 def _segment_problem(f, fp, seed):
@@ -147,6 +195,86 @@ def test_os_segment_fused_tail_matches_reference(f, fp, use_pallas):
         )
         assert tuple(got.shape) == tuple(want.shape)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def _conv_segment_problem(f, fp, seed):
+    """Raw input for the from-raw-input form, with its spec and kernel spectra."""
+    n, k, seg_core = (13, 5, 7), (3, 3, 3), 4  # ragged tail, padded window
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(2, f) + n).astype(np.float32)
+    w = (rng.normal(size=(fp, f) + k) * 0.3).astype(np.float32)
+    b = rng.normal(size=(fp,)).astype(np.float32)
+    spec = jax_plan_os(n, k, seg_core)
+    W = np.array(jax_kfft(jnp.asarray(w), spec.fft_shape))
+    return spec, plan_overlap_save(n, k, seg_core), x, W, b
+
+
+@pytest.mark.parametrize("use_pallas", [True, False], ids=["pallas", "xla"])
+@pytest.mark.parametrize("f,fp", [(1, 5), (9, 3)], ids=["f1", "f9"])
+def test_os_segment_conv_matches_reference(f, fp, use_pallas):
+    spec, pspec, x, W, b = _conv_segment_problem(f, fp, seed=30 + f)
+    want = jax_seg.os_segment_conv(
+        jnp.asarray(x), jnp.asarray(W), jnp.asarray(b), spec, use_pallas=use_pallas
+    )
+    got = seg_ops.os_segment_conv(
+        torch.from_numpy(x), torch.from_numpy(W), torch.from_numpy(b), pspec
+    )
+    assert tuple(got.shape) == tuple(want.shape)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **CONV_TOL)
+    ref = jax_seg_ref.os_segment_conv(
+        jnp.asarray(x), jnp.asarray(W), jnp.asarray(b), spec
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **CONV_TOL)
+
+
+def test_forward_mats_match_reference_unpadded():
+    """The conv form's forward DFT matrices are the reference's, minus the
+    TPU lane/sublane padding."""
+    fft_shape, in_shape = (12, 10, 9), (7, 8, 6)
+    ref = jax_seg._forward_mats(fft_shape, in_shape)
+    fz, fy, fx = seg_ops._forward_mats_np(fft_shape, in_shape)
+    A, B, C = fft_shape
+    E, ny, nz = in_shape
+    Cb = C // 2 + 1
+    np.testing.assert_array_equal(fz.real, ref[0][:nz, :Cb])
+    np.testing.assert_array_equal(fz.imag, ref[1][:nz, :Cb])
+    np.testing.assert_array_equal(fy.real, ref[2][:ny, :B])
+    np.testing.assert_array_equal(fy.imag, ref[3][:ny, :B])
+    np.testing.assert_array_equal(fx.real, ref[4][:E, :A])
+    np.testing.assert_array_equal(fx.imag, ref[5][:E, :A])
+
+
+@pytest.mark.parametrize("f,fp", [(1, 5), (9, 3)], ids=["f1", "f9"])
+def test_segment_conv_forward_passes_match_plain_version(f, fp):
+    """The conv form's forward passes, replayed with torch ops on the CPU in
+    the CUDA entry's order and buffer layouts: rows read straight from x
+    (segment q's row e is x-row q·seg_core + e, zero past the input), the
+    real pass along z into (rows·ny, C''), the product along y into
+    (rows, B, C''), then along x into the segment spectra — equal to the
+    plain version's segment FFT, and through the pipeline to its output."""
+    _, spec, x, W, b = _conv_segment_problem(f, fp, seed=40 + f)
+    xt = torch.from_numpy(x)
+    N, nx, ny, nz = x.shape[0], *x.shape[2:]
+    Q, E, s = spec.n_segments, spec.seg_extent, spec.seg_core
+    A, B, C = spec.fft_shape
+    Cb = C // 2 + 1
+    fz, fy, fx = (torch.from_numpy(m) for m in seg_ops._forward_mats_np(
+        tuple(spec.fft_shape), (E, ny, nz)))
+    rows = torch.zeros((N, Q, f, E, ny, nz))
+    for q in range(Q):
+        for e in range(E):
+            if q * s + e < nx:
+                rows[:, q, :, e] = xt[:, :, q * s + e]
+    X1 = rows.reshape(-1, nz).to(torch.complex64) @ fz  # (rows·ny, C'')
+    X2 = torch.einsum("pyc,yb->pbc", X1.reshape(-1, ny, Cb), fy)
+    F = torch.einsum("pebc,ea->pabc", X2.reshape(N * Q * f, E, B * Cb)
+                     .reshape(N * Q * f, E, B, Cb), fx)
+    F = F.reshape(N, Q, f, A, B, Cb)
+    want_F = torch.from_numpy(np.array(jax_os_input_spectra(jnp.asarray(x), spec)))
+    np.testing.assert_allclose(F.numpy(), want_F.numpy(), atol=1e-3, rtol=1e-4)
+    got = seg_ops.os_segment_fused(F, torch.from_numpy(W), torch.from_numpy(b), spec)
+    want = seg_ops.os_segment_conv(xt, torch.from_numpy(W), torch.from_numpy(b), spec)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **CONV_TOL)
 
 
 def test_inverse_mats_match_reference_unpadded():
@@ -207,3 +335,12 @@ def test_wrappers_refuse_kernels_on_cpu_tensors():
     W = torch.zeros((2,) + tuple(F.shape[2:]), dtype=torch.complex64)
     with pytest.raises(ValueError):
         seg_ops.os_segment_fused(F, W, None, spec, use_kernels=True)
+    with pytest.raises(ValueError):
+        seg_ops.os_segment_conv(torch.zeros((1, 1, 6, 4, 4)), W, None, spec,
+                                use_kernels=True)
+    with pytest.raises(ValueError):
+        mpf_ops.mpf_pool_window(torch.zeros((1, 1, 5, 5, 6)), 2, (5, 5, 5),
+                                use_kernels=True)
+    with pytest.raises(ValueError):
+        conv3d_ops.conv3d(torch.zeros((1, 1, 3, 3, 3)), torch.zeros((2, 1, 2, 2, 2)),
+                          use_kernels=True)

@@ -12,6 +12,7 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from repro.configs.znni_nets import BENCH_NET as JAX_BENCH, N337 as JAX_N337
 from repro.core import hw as jax_hw
@@ -135,11 +136,16 @@ def test_executor_predict_counts_equal(net, jnet, m, batch, shape, deep):
 
 
 def test_registry_names_match_cost_model():
-    """Every primitive name the planner prices is registered (its setup may
-    still raise until its slice lands)."""
+    """Every primitive name the planner prices is registered, and every one
+    sets up for a layer."""
     from repro_torch.core import cost_model, primitives
 
     assert set(primitives._CONV) == set(cost_model.CONV_PRIMS)
     assert set(primitives._POOL) == set(cost_model.POOL_PRIMS)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        primitives.conv_primitive("direct").setup(None, None, (4, 4, 4))
+    w, b = torch.zeros((2, 1, 3, 3, 3)), torch.zeros((2,))
+    for name in cost_model.CONV_PRIMS:
+        pl = primitives.conv_primitive(name).setup(w, b, (6, 6, 6))
+        assert pl.kind == "conv" and pl.kernel_size == (3, 3, 3), name
+    for name in cost_model.POOL_PRIMS:
+        assert primitives.pool_primitive(name).setup(2, (5, 5, 5) if name == "mpf"
+                                                     else (6, 6, 6)).pool_size == 2

@@ -260,7 +260,6 @@ def test_unported_modes_raise(cases):
     ex = PlanExecutor(case.params, case.net, prims=case.prims, m=1, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ex.run(case.vols[1], sweep_axis=1)
-    dense = ["fft_cached" if l.kind == "conv" else "mpf" for l in case.net.layers]
-    ex = PlanExecutor(case.params, case.net, prims=dense, m=1, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ex.run(case.vols[1])
+        PlanExecutor(case.params, case.net, prims=case.prims, m=1,
+                     streaming=True, device="cpu")
