@@ -36,7 +36,21 @@ Phases, in order; any failure makes the exit code non-zero:
 5. The plain-pool path: ``tiled_apply`` on ``bench-net`` with the
    ``use_mpf=False`` plan's primitives (P=4: 64 shifted passes a patch),
    held against the dense oracle.
-6. Print the kernels' JSON line, then, as the last line,
+6. The LM serving path, after the ZNNi phases' memory is freed:
+   a. ``decode_attn`` against its plain version at the served shapes
+      (B 8, S 2048, Hkv 8, G 5, d 128, bf16, one length above S), in f32,
+      and on a ragged S=600; timed beside its bound and beside PyTorch's
+      ``scaled_dot_product_attention`` (timed only).
+   b. Full-width, full-depth Qwen2.5-14B (48 layers, bf16, random weights
+      from seed 0 drawn on the card) served through ``ServingEngine``
+      (8 slots, max_seq 2048): 12 requests, more than the slots, with the
+      launch counts zeroed before the drain and read after; then one
+      decode tick under ``torch.profiler``.
+   c. Every served token's logit within ``LOGIT_TOL`` of its row's maximum
+      in a plain ``forward`` (chunked attention, no decode kernel) of
+      prompt + generated tokens, and one ``decode_step`` on a fixed cache
+      with the kernel against one with the plain version.
+7. Print the kernels' JSON line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -52,8 +66,10 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
 
-# NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, HBM3
+# NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, dense bf16
+# on the tensor cores, HBM3
 PEAK_FP32 = 67e12
+PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 
 KERNELS = {
@@ -71,6 +87,8 @@ KERNELS = {
                         "src/repro/kernels/os_segment/kernel.py:200"),
     "conv3d": ("src/repro_torch/csrc/direct_conv3d.cu",
                "src/repro/kernels/direct_conv3d/kernel.py:52"),
+    "decode_attn": ("src/repro_torch/csrc/decode_attn.cu",
+                    "src/repro/kernels/decode_attn/kernel.py:61"),
 }
 # kernels each serving mode must launch (cmul_mad_bias only serves the
 # fused conv+pool pairs: fuse_os on the reuse path, fuse_pairs on the
@@ -80,6 +98,7 @@ REACHED = {
     True: ("os_segment", "cmul_mad", "cmul_mad_bias", "mpf_pool"),
     "dense": ("conv3d", "os_segment_conv", "mpf_pool_window", "cmul_mad_bias",
               "cmul_mad", "mpf_pool"),
+    "lm": ("decode_attn",),
 }
 # end-to-end tolerance of the reference's volume tests
 E2E = dict(atol=1e-3, rtol=1e-4)
@@ -126,10 +145,11 @@ def time_ms(fn, device, reps: int = 5, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak: float = PEAK_FP32):
     """Least time (ms) for the work: the larger of bytes over the memory
-    rate and operations over the fp32 rate, and which of the two it is."""
-    tb, tf = nbytes / PEAK_BYTES, flops / PEAK_FP32
+    rate and operations over the peak rate of their type (fp32 unless
+    given), and which of the two it is."""
+    tb, tf = nbytes / PEAK_BYTES, flops / peak
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
@@ -544,11 +564,8 @@ def run_dense(smoke, device, net, params, hw, m, batch, launches, serving, gen,
 
 def profile_batch(engine, vol, device):
     """One full dense patch batch under torch.profiler (after a warm-up
-    batch): device time by kernel, and the device's busy share of the
-    batch's wall time (one stream, so kernel times do not overlap)."""
+    batch)."""
     import numpy as np
-    import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.volume.tiler import extract_patch
 
@@ -557,10 +574,21 @@ def profile_batch(engine, vol, device):
     xs = np.stack([extract_patch(vol, s, tiling.extent)
                    for s in tiling.patches[: ex.batch]])
     ex.run_patch_batch(xs)
+    device_profile(lambda: ex.run_patch_batch(xs), device,
+                   f"one batch of {xs.shape[0]} patches")
+
+
+def device_profile(fn, device, label, top=20):
+    """One call of ``fn`` under torch.profiler: device time by kernel, and
+    the device's busy share of the call's wall time (one stream, so kernel
+    times do not overlap).  Returns (wall s, busy s, rows)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     _sync(device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ex.run_patch_batch(xs)
+        fn()
         _sync(device)
         wall = time.perf_counter() - t0
 
@@ -577,11 +605,11 @@ def profile_batch(engine, vol, device):
                    if str(getattr(e, "device_type", "")).endswith("CUDA")
                    and dev_us(e) > 0), reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
-    print(f"profile: one batch of {xs.shape[0]} patches, wall {wall * 1e3:.3f} ms, "
-          f"device busy {busy * 1e3:.3f} ms ({100 * busy / wall:.1f}% of wall)",
-          flush=True)
-    for us, count, name in rows[:20]:
+    print(f"profile: {label}, wall {wall * 1e3:.3f} ms, device busy "
+          f"{busy * 1e3:.3f} ms ({100 * busy / wall:.1f}% of wall)", flush=True)
+    for us, count, name in rows[:top]:
         print(f"profile: {us / 1e3:10.3f} ms {count:6d}x  {name[:110]}", flush=True)
+    return wall, busy, rows
 
 
 def plain_pool(smoke, device, net, hw, seed):
@@ -621,6 +649,257 @@ def plain_pool(smoke, device, net, hw, seed):
     smoke.check(ok, f"plain-pool tiled_apply vs dense oracle: max_abs_err {err:.3e} "
                     f"(atol {E2E['atol']}, rtol {E2E['rtol']}, "
                     f"max|ref| {float(want.abs().max()):.3f})")
+
+
+# Served Qwen2.5-14B (bf16): a served token's logit may sit below its row's
+# maximum in a plain forward by this much, and one decode step with the
+# kernel may move a logit from the plain version's by this much.  The two
+# paths round differently (M=8 GEMMs and the decode kernel one token at a
+# time against M=P+n GEMMs and chunked attention), and 48 random bf16
+# layers amplify a one-ulp difference: a decode_attn output one bf16 ulp
+# off (2e-3) moved logits by up to 0.41 (this script on an NVIDIA H100
+# 80GB HBM3 at 700 W), and the worst served-token gap was 0.34, against
+# row maxima ~5 sigma above the row mean.  A broken path puts the served
+# token at a random rank, about that far below the maximum.
+LOGIT_TOL = 1.0
+# decode_attn tolerances: the reference's (tests/test_kernels.py)
+DA_TOL = {"bfloat16": dict(atol=2e-2, rtol=1e-2), "float32": dict(atol=1e-4, rtol=1e-4)}
+
+
+def check_decode_attn(smoke, device, gen, cases):
+    """Phase 6a: ``decode_attn`` vs its plain version; the first case (the
+    served shapes) is timed beside its bound and PyTorch's SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attn import ops as da_ops
+
+    result = None
+    for label, B, S, Hkv, G, d, dt in cases:
+        dtype = getattr(torch, dt)
+        H = Hkv * G
+        q = torch.randn((B, H, d), generator=gen).to(device, dtype)
+        k = torch.randn((B, S, Hkv, d), generator=gen).to(device, dtype)
+        v = torch.randn((B, S, Hkv, d), generator=gen).to(device, dtype)
+        lengths = torch.randint(1, S + 1, (B,), generator=gen, dtype=torch.int32)
+        lengths[0] = S + 5  # a slot past its cache, as idle slots run
+        lengths = lengths.to(device)
+        got = da_ops.decode_attn(q, k, v, lengths)
+        want = da_ops.decode_attn(q, k, v, lengths, use_kernels=False)
+        tol = DA_TOL[dt]
+        ok, err = _close(got.float(), want.float(), **tol)
+        smoke.check(ok and got.dtype == dtype,
+                    f"decode_attn ({label}) vs plain, B {B} S {S} Hkv {Hkv} G {G} d {d} "
+                    f"{dt}, lengths {lengths.tolist()}: max_abs_err {err:.3e} "
+                    f"(atol {tol['atol']}, rtol {tol['rtol']})")
+        if result is not None:
+            continue
+        # the function's compulsory traffic: q, the valid K/V rows, the
+        # lengths and the output, each once; 4 operations per (head,
+        # valid row, d) for the scores and the PV product
+        valid = float(torch.clamp(lengths, max=S).sum())
+        nbytes = (_nb(q) + 2.0 * valid * Hkv * d * q.element_size() + _nb(lengths)
+                  + _nb(got))
+        flops = 4.0 * valid * H * d
+        r = dict(max_abs_err=err)
+        r["bound_ms"], r["bound_by"] = bound(
+            nbytes, flops, PEAK_BF16 if dtype == torch.bfloat16 else PEAK_FP32)
+        r["ms"] = time_ms(lambda: da_ops.decode_attn(q, k, v, lengths), device, reps=50,
+                          warmup=3)
+        r["plain_ms"] = time_ms(
+            lambda: da_ops.decode_attn(q, k, v, lengths, use_kernels=False), device, reps=10)
+        qs, ks, vs = q.view(B, H, 1, d), k.transpose(1, 2), v.transpose(1, 2)
+        mask = (torch.arange(S, device=device)[None] < lengths[:, None])[:, None, None]
+        r["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask, enable_gqa=True), device, reps=50, warmup=3)
+        lib = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, enable_gqa=True)
+        print(f"kernel decode_attn ({label}): {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"SDPA {r['library_ms']:.4f} ms (its max_abs_err vs plain "
+              f"{float((lib.view(B, H, d).float() - want.float()).abs().max()):.3e}), "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}): {nbytes / 1e6:.3f} MB, "
+              f"{valid:.0f} valid rows", flush=True)
+        result = r
+    return result
+
+
+def serve_lm(smoke, device, cfg, *, slots, max_seq, n_requests, prompt_range,
+             new_range, seed=0):
+    """Phase 6b: serve ``cfg`` through ``ServingEngine``; returns the
+    model, params, engine, requests and the launch counts of the drain."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.models import build_model
+    from repro_torch.serving import EngineConfig, Request, ServingEngine
+
+    model = build_model(cfg)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t = time.perf_counter()
+    params = model.init(gen, device=device)
+    _sync(device)
+    n_params = sum(p.numel() for p in _leaves(params))
+    print(f"lm: {cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.attn.n_heads} heads on {cfg.attn.n_kv_heads} kv heads, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}, {cfg.dtype}: {n_params} parameters drawn in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    engine = ServingEngine(model, params, EngineConfig(slots=slots, max_seq=max_seq),
+                           device=device)
+    rng = np.random.default_rng(seed)
+    reqs = [Request(i, rng.integers(0, cfg.vocab, size=(int(rng.integers(*prompt_range)),))
+                    .astype(np.int32), int(rng.integers(*new_range)))
+            for i in range(n_requests)]
+    for r in reqs:
+        engine.submit(r)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    _sync(device)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    ticks, admitted_late = 0, False
+    while True:
+        queued = len(engine.queue)
+        if engine.step() == 0:
+            break
+        ticks += 1
+        admitted_late |= ticks > 1 and len(engine.queue) < queued
+    _sync(device)
+    dt = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    generated = sum(len(r.out) for r in reqs)
+    prompt_tokens = sum(len(r.prompt) for r in reqs)
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+    print(f"serve lm: {n_requests} requests ({prompt_tokens} prompt tokens, lengths "
+          f"{[len(r.prompt) for r in reqs]}, max_new {[r.max_new for r in reqs]}) on "
+          f"{slots} slots: {generated} generated tokens, {ticks} decode ticks in {dt:.3f} s "
+          f"= {generated / dt:.1f} generated tokens/s; max_memory_allocated {peak}; "
+          f"launches {json.dumps(counts)}", flush=True)
+    smoke.check(all(r.done and len(r.out) == r.max_new for r in reqs),
+                "lm: every request done with max_new tokens")
+    smoke.check(not engine.queue and admitted_late,
+                "lm: requests admitted mid-run (more requests than slots)")
+    want = cfg.n_layers * ticks
+    smoke.check(counts["decode_attn"] == want and want > 0,
+                f"lm: decode_attn launched {counts['decode_attn']} times == "
+                f"{cfg.n_layers} layers x {ticks} decode ticks")
+    for name in REACHED["lm"]:
+        smoke.check(counts[name] > 0, f"lm: {name} launched {counts[name]} times "
+                                      f"on the main path")
+    stats = dict(seconds=dt, generated=generated, ticks=ticks, tokens_per_s=generated / dt,
+                 max_memory_allocated=peak)
+    return model, params, engine, reqs, counts, stats
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def check_lm(smoke, device, model, params, engine, reqs):
+    """Phase 6c: served tokens against a plain forward; one decode step
+    with the kernel against one with the plain version, on a fixed cache."""
+    import torch
+
+    from repro_torch.layers.dot import f32_accumulation
+
+    worst, exact, total, sigma, spread = 0.0, 0, 0, 0.0, 0.0
+    with f32_accumulation():
+        for r in reqs:
+            seq = list(r.prompt) + r.out[:-1]
+            toks = torch.as_tensor(seq, dtype=torch.long, device=device)[None]
+            logits, _ = model.forward(params, {"tokens": toks})
+            rows = logits[0, len(r.prompt) - 1:].float()
+            served = torch.as_tensor(r.out, device=device)
+            top = rows.max(dim=-1).values
+            gap = top - rows.gather(1, served[:, None])[:, 0]
+            worst = max(worst, float(gap.max()))
+            exact += int((gap == 0).sum())
+            total += len(r.out)
+            sigma += float(rows.std(dim=-1).sum())
+            spread += float((top - rows.mean(dim=-1)).sum())
+            del logits, rows
+    smoke.check(worst <= LOGIT_TOL,
+                f"lm: every served token's logit within {LOGIT_TOL} of its row's maximum "
+                f"in a plain forward: worst gap {worst:.4f}; {exact} of {total} served "
+                f"tokens are the forward's argmax; rows: mean std {sigma / total:.3f}, "
+                f"mean (max - mean) {spread / total:.3f}")
+
+    caches = engine.caches
+
+    def fixed():
+        return {"blocks": {j: {k: t.clone() for k, t in c.items()}
+                           for j, c in caches["blocks"].items()},
+                "rem": {j: {k: t.clone() for k, t in c.items()}
+                        for j, c in caches["rem"].items()},
+                "lengths": caches["lengths"].clone()}
+
+    tokens = engine._next_tok.clone()
+    with f32_accumulation():
+        got, _ = model.decode_step(params, tokens, fixed(),
+                                   use_kernels=device.type == "cuda")
+        want, _ = model.decode_step(params, tokens, fixed(), use_kernels=False)
+    err = float((got.float() - want.float()).abs().max())
+    same = int((got[:, 0].argmax(-1) == want[:, 0].argmax(-1)).sum())
+    smoke.check(err <= LOGIT_TOL,
+                f"lm: decode_step logits with the kernel vs the plain version on a fixed "
+                f"cache (lengths {caches['lengths'].tolist()}): max_abs_err {err:.4f} "
+                f"(atol {LOGIT_TOL}); argmax equal in {same} of {got.shape[0]} slots")
+    return dict(worst_gap=worst, exact=exact, total=total, decode_step_err=err,
+                logit_std=sigma / total, logit_top_minus_mean=spread / total)
+
+
+def run_lm(device, cfg, *, da_cases, slots, max_seq, n_requests, prompt_range, new_range,
+           seed=0):
+    """Phase 6: the LM serving path; returns (decode_attn result, failures)."""
+    import torch
+
+    from repro_torch.layers.dot import f32_accumulation
+
+    smoke = Smoke()
+    gen = torch.Generator().manual_seed(seed + 3)
+    result = check_decode_attn(smoke, device, gen, da_cases)
+    model, params, engine, reqs, counts, stats = serve_lm(
+        smoke, device, cfg, slots=slots, max_seq=max_seq, n_requests=n_requests,
+        prompt_range=prompt_range, new_range=new_range, seed=seed)
+    result["launches"] = counts["decode_attn"]
+    # decode ticks on the drained engine's caches (each writes the same
+    # rows: the engine's lengths are not advanced), timed on the host
+    # clock; then one under torch.profiler; then the longest prompt's
+    # prefill
+    def tick():
+        return model.decode_step(params, engine._next_tok, engine.caches)
+
+    longest = max(reqs, key=lambda r: len(r.prompt)).prompt
+    toks = torch.as_tensor(longest, dtype=torch.long, device=device)[None]
+    with f32_accumulation():
+        tick()
+        _sync(device)
+        t = time.perf_counter()
+        for _ in range(5):
+            tick()
+        _sync(device)
+        tick_ms = (time.perf_counter() - t) * 1e3 / 5
+        wall, busy, rows = device_profile(tick, device, f"one decode tick of {slots} slots",
+                                          top=12)
+        t = time.perf_counter()
+        model.prefill(params, {"tokens": toks}, cache_len=max_seq)
+        _sync(device)
+        prefill_ms = (time.perf_counter() - t) * 1e3
+    print(f"lm: decode tick {tick_ms:.3f} ms on the host clock (5 ticks, no profiler) = "
+          f"{slots / tick_ms * 1e3:.1f} tokens/s at {slots} busy slots; prefill of "
+          f"{len(longest)} tokens {prefill_ms:.3f} ms", flush=True)
+    da_us = sum(us for us, _, name in rows if "decode_attn" in name)
+    print(f"profile: decode_attn {da_us / 1e3:.3f} ms of the tick's {busy * 1e3:.3f} ms "
+          f"device time", flush=True)
+    stats.update(tick_ms=tick_ms, tick_profiled_wall_ms=wall * 1e3,
+                 tick_busy_ms=busy * 1e3, tick_decode_attn_ms=da_us / 1e3,
+                 prefill_ms=prefill_ms, prefill_tokens=len(longest))
+    stats.update(check_lm(smoke, device, model, params, engine, reqs))
+    print("serving lm: " + json.dumps(stats), flush=True)
+    return result, smoke.failures
 
 
 def run(device, net, m: int, batch: int, hw, seed: int = 0, *, dense_m: int,
@@ -712,6 +991,7 @@ def main() -> int:
     print(f"card: {card}", flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
+    from repro_torch.configs import get_config
     from repro_torch.configs.znni_nets import BENCH_NET, N337
     from repro_torch.core.hw import H100_SXM
     from repro_torch.kernels import build
@@ -723,6 +1003,17 @@ def main() -> int:
     device = torch.device("cuda", 0)
     results, failures = run(device, N337, m=4, batch=2, hw=H100_SXM, dense_m=8,
                             plain_net=BENCH_NET)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    results["decode_attn"], lm_failures = run_lm(
+        device, get_config("qwen2.5-14b"),
+        da_cases=[("served", 8, 2048, 8, 5, 128, "bfloat16"),
+                  ("f32", 4, 1024, 8, 5, 128, "float32"),
+                  ("ragged", 3, 600, 8, 5, 128, "bfloat16")],
+        slots=8, max_seq=2048, n_requests=12, prompt_range=(64, 1537),
+        new_range=(16, 65))
+    failures += lm_failures
+    print(f"lm phase: {time.perf_counter() - t:.1f} s", flush=True)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = results.get(name, {})

@@ -10,12 +10,12 @@ first use.  Dispatch rule: ``dispatch.resolve_use_kernels``.
 
 from typing import Dict
 
-from . import cmul_mad, direct_conv3d, mpf_pool, os_segment  # noqa: F401
+from . import cmul_mad, decode_attn, direct_conv3d, mpf_pool, os_segment  # noqa: F401
 from .dispatch import resolve_device, resolve_use_kernels  # noqa: F401
 
 _COUNTERS = (
     os_segment.ops.launches, cmul_mad.ops.launches, mpf_pool.ops.launches,
-    direct_conv3d.ops.launches,
+    direct_conv3d.ops.launches, decode_attn.ops.launches,
 )
 
 

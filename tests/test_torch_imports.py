@@ -24,6 +24,11 @@ MODULES = (
     "repro_torch.core.direct_conv",
     "repro_torch.volume",
     "repro_torch.serving",
+    "repro_torch.layers",
+    "repro_torch.models",
+    "repro_torch.kernels.decode_attn",
+    "repro_torch.serving.engine",
+    "repro_torch.launch.serve",
 )
 
 

@@ -5,7 +5,8 @@ wrappers — the Pallas kernel in interpret mode (``use_pallas=True``) and
 its XLA oracle (``use_pallas=False``) — and through the port's wrappers on
 CPU tensors, which run the plain PyTorch versions.  Tolerance: the
 reference's per-kernel ``atol=1e-4, rtol=1e-4`` (``tests/test_kernels.py``);
-MPF is a max, so exact.  The direct conv and the from-raw-input segment
+MPF is a max, so exact.  Decode attention takes the reference's
+``atol=1e-4`` in f32 and ``atol=2e-2, rtol=1e-2`` in bf16.  The direct conv and the from-raw-input segment
 conv take the reference's ``atol=1e-3, rtol=1e-4`` (``tests/test_kernels.py``,
 ``tests/test_os_fused.py``).  A wrapper asked for the CUDA kernel on a CPU
 tensor must raise.
@@ -22,6 +23,8 @@ from repro.core.overlap_save import os_input_spectra as jax_os_input_spectra
 from repro.core.overlap_save import plan_overlap_save as jax_plan_os
 from repro.core.overlap_save import tail_segments
 from repro.kernels.cmul_mad import ops as jax_cmul
+from repro.kernels.decode_attn import ops as jax_da
+from repro.kernels.decode_attn import ref as jax_da_ref
 from repro.kernels.direct_conv3d import ops as jax_conv3d
 from repro.kernels.direct_conv3d import ref as jax_conv3d_ref
 from repro.kernels.mpf_pool import ops as jax_mpf
@@ -29,6 +32,7 @@ from repro.kernels.os_segment import ops as jax_seg
 from repro.kernels.os_segment import ref as jax_seg_ref
 from repro_torch.core.overlap_save import plan_overlap_save
 from repro_torch.kernels.cmul_mad import ops as cmul_ops
+from repro_torch.kernels.decode_attn import ops as da_ops
 from repro_torch.kernels.direct_conv3d import ops as conv3d_ops
 from repro_torch.kernels.mpf_pool import ops as mpf_ops
 from repro_torch.kernels.mpf_pool import ref as mpf_ref
@@ -344,3 +348,91 @@ def test_wrappers_refuse_kernels_on_cpu_tensors():
     with pytest.raises(ValueError):
         conv3d_ops.conv3d(torch.zeros((1, 1, 3, 3, 3)), torch.zeros((2, 1, 2, 2, 2)),
                           use_kernels=True)
+
+
+# --------------------------------------------------------------------------
+# decode_attn
+# --------------------------------------------------------------------------
+
+
+def _decode_inputs(rng, B, H, Hkv, S, d):
+    q = rng.normal(size=(B, H, d)).astype(np.float32)
+    k = rng.normal(size=(B, S, Hkv, d)).astype(np.float32)
+    v = rng.normal(size=(B, S, Hkv, d)).astype(np.float32)
+    return q, k, v
+
+
+def _da_pair(q, k, v, lengths, dtype):
+    """The same inputs as JAX arrays and as CPU tensors, rounded alike."""
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    jx = [jnp.asarray(a).astype(jdt) for a in (q, k, v)] + [jnp.asarray(lengths)]
+    tx = [torch.from_numpy(a).to(tdt) for a in (q, k, v)] + [torch.from_numpy(lengths)]
+    return jx, tx
+
+
+def _da_tol(dtype):
+    return dict(atol=2e-2, rtol=1e-2) if dtype == "bfloat16" else dict(atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("use_pallas", [True, False], ids=["pallas", "xla"])
+@pytest.mark.parametrize("B,H,Hkv,S,d,dtype", [
+    (1, 4, 4, 128, 32, "float32"),    # MHA
+    (2, 8, 2, 600, 16, "float32"),    # GQA, S not a multiple of S_BLOCK
+    (2, 8, 1, 1024, 64, "float32"),   # MQA
+    (2, 4, 2, 513, 32, "bfloat16"),   # bf16 + ragged S
+    (2, 10, 2, 600, 16, "float32"),   # G = 5, as Qwen2.5-14B's 40 on 8
+    (2, 10, 2, 513, 32, "bfloat16"),  # G = 5 in bf16
+])
+def test_decode_attn_matches_reference(B, H, Hkv, S, d, dtype, use_pallas):
+    rng = np.random.default_rng(B * 1000 + H * 10 + S)
+    q, k, v = _decode_inputs(rng, B, H, Hkv, S, d)
+    lengths = rng.integers(1, S + 1, size=(B,)).astype(np.int32)
+    (jq, jk, jv, jl), (tq, tk, tv, tl) = _da_pair(q, k, v, lengths, dtype)
+    want = jax_da.decode_attn(jq, jk, jv, jl, use_pallas=use_pallas)
+    got = da_ops.decode_attn(tq, tk, tv, tl)
+    assert got.dtype == tq.dtype and got.shape == (B, H, d)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               **_da_tol(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attn_lengths_beyond_cache_match_ref(dtype):
+    """Lengths above S attend over all S entries, as the reference's
+    ``ref.py`` does.  Held against ``ref`` only: the reference's Pallas
+    path pads S to a multiple of 512 with zeros and its mask then counts
+    those zero rows as valid (``ops.py`` pads, ``kernel.py`` masks
+    ``idx < lengths``), so at S=600 with lengths 605 and 700 it differs
+    from its own ``ref.py`` by ~1.5e-2."""
+    rng = np.random.default_rng(11)
+    B, H, Hkv, S, d = 2, 10, 2, 600, 16
+    q, k, v = _decode_inputs(rng, B, H, Hkv, S, d)
+    lengths = np.array([605, 700], np.int32)
+    (jq, jk, jv, jl), (tq, tk, tv, tl) = _da_pair(q, k, v, lengths, dtype)
+    want = jax_da_ref.decode_attn(jq, jk, jv, jl)
+    got = da_ops.decode_attn(tq, tk, tv, tl)
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32),
+                               **_da_tol(dtype))
+    # and lengths == S gives the same output as any length above it
+    full = da_ops.decode_attn(tq, tk, tv, torch.full((B,), S, dtype=torch.int32))
+    np.testing.assert_array_equal(got.float().numpy(), full.float().numpy())
+
+
+def test_decode_attn_masks_beyond_length():
+    """Entries past ``lengths`` must not affect the output."""
+    rng = np.random.default_rng(3)
+    B, H, Hkv, S, d = 2, 10, 2, 256, 16
+    q, k, v = (torch.from_numpy(a) for a in _decode_inputs(rng, B, H, Hkv, S, d))
+    lengths = torch.tensor([100, 37], dtype=torch.int32)
+    out1 = da_ops.decode_attn(q, k, v, lengths)
+    k2, v2 = k.clone(), v.clone()
+    k2[0, 100:], v2[0, 100:] = 1e6, -1e6
+    k2[1, 37:], v2[1, 37:] = 1e6, -1e6
+    out2 = da_ops.decode_attn(q, k2, v2, lengths)
+    np.testing.assert_allclose(out1.numpy(), out2.numpy(), atol=1e-5)
+
+
+def test_decode_attn_refuses_kernel_on_cpu_tensors():
+    q, k = torch.zeros((1, 4, 16)), torch.zeros((1, 8, 2, 16))
+    with pytest.raises(ValueError):
+        da_ops.decode_attn(q, k, k, torch.ones((1,), dtype=torch.int32), use_kernels=True)
