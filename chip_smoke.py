@@ -8,12 +8,15 @@ It needs one CUDA card; without one (or without the repository's
 Phases, in order; any failure makes the exit code non-zero:
 
 1. Print the card's name and power limit (``nvidia-smi``), then build the
-   CUDA kernels from ``src/repro_torch/csrc`` and print the build time.
+   CUDA kernels from ``src/repro_torch/csrc`` and print the build time and
+   ptxas's registers, shared memory and spills of the MAD's and the
+   segment conv's kernels.
 2. Hold each CUDA kernel of the reuse path against its plain PyTorch
    version on the card, at the shapes the served n337 plan gives it (read
    off the compiled plan), with the tolerance printed beside it; time
    kernel, plain version and, where one PyTorch call computes the same
-   function, that call.
+   function, that call.  Then the MAD and ``os_segment_conv`` at ragged
+   shapes (no multiple of any tile), against their plain versions.
 3. Serve full-width n337 (Table III: 80 maps, 10 layers; random weights
    from a seed) through ``VolumeEngine`` on an ``H100_SXM`` plan with the
    deployed primitives (``overlap_save`` at layer 0, ``fft_cached`` deeper,
@@ -28,7 +31,10 @@ Phases, in order; any failure makes the exit code non-zero:
    fft_cached ×3, direct), cut only in patch size (m=8, batch 2).  First the
    three kernels it adds (``conv3d`` at layers 0 and 9, ``os_segment_conv``
    at layer 2, ``mpf_pool_window`` in the fused pair at layers 4-5) against
-   their plain versions and timed, then three requests served through
+   their plain versions and timed, ``os_segment_conv`` once more under
+   ``torch.profiler`` (each pass's kernel time, in launch order), and
+   ``cmul_mad`` at the deepest ``fft_cached`` layer's S = 1024 (timed
+   beside ``einsum`` and its bound), then three requests served through
    ``VolumeEngine`` with the launch counts zeroed before and read after,
    held against the dense oracle, and one more patch batch under
    ``torch.profiler``: device time by kernel, and the share of the
@@ -165,6 +171,24 @@ def _close(got, want, atol, rtol):
     return ok, float(err.max())
 
 
+def _check_mad(smoke, label, X, W, got, want):
+    """Hold a MAD kernel's output against its plain version.  Flat bin 0
+    carries the DC bias (b*prod(fft_shape)), far above the other bins, so
+    each part gets an atol scaled from its own magnitude; rtol 1e-4.
+    Returns the max abs error."""
+    bins = X[0, 0].numel()
+    g, w = got.reshape(-1, bins), want.reshape(-1, bins)
+    atol_dc = 1e-4 * float(w[:, 0].abs().max())
+    atol = 1e-4 * float(w[:, 1:].abs().max())
+    ok_dc, err_dc = _close(g[:, 0], w[:, 0], atol=atol_dc, rtol=1e-4)
+    ok, err = _close(g[:, 1:], w[:, 1:], atol=atol, rtol=1e-4)
+    smoke.check(ok and ok_dc,
+                f"{label} vs plain, X {tuple(X.shape)} W {tuple(W.shape)}: "
+                f"max_abs_err {err:.3e} off bin 0 (atol 1e-4*max|plain| there = "
+                f"{atol:.3e}), {err_dc:.3e} at bin 0 (atol {atol_dc:.3e}); rtol 1e-4")
+    return max(err, err_dc)
+
+
 def check_kernels(smoke, ex, plan, device, gen):
     """Phase 2: every kernel vs its plain version at the plan's shapes."""
     import torch
@@ -241,18 +265,7 @@ def check_kernels(smoke, ex, plan, device, gen):
             X2, W2, b2, fft_shape=fft2, use_kernels=uk)),
     ):
         got, want = call(None), call(False)
-        # flat bin 0 carries the DC bias (b*prod(fft_shape)), far above the
-        # other bins: each part gets an atol scaled from its own magnitude
-        g, w = got.reshape(-1, bins), want.reshape(-1, bins)
-        atol_dc = 1e-4 * float(w[:, 0].abs().max())
-        atol = 1e-4 * float(w[:, 1:].abs().max())
-        ok_dc, err_dc = _close(g[:, 0], w[:, 0], atol=atol_dc, rtol=1e-4)
-        ok, err = _close(g[:, 1:], w[:, 1:], atol=atol, rtol=1e-4)
-        smoke.check(ok and ok_dc,
-                    f"{name} vs plain, X {tuple(X2.shape)} W {tuple(W2.shape)}: "
-                    f"max_abs_err {err:.3e} off bin 0 (atol 1e-4*max|plain| there = "
-                    f"{atol:.3e}), {err_dc:.3e} at bin 0 (atol {atol_dc:.3e}); rtol 1e-4")
-        err = max(err, err_dc)
+        err = _check_mad(smoke, name, X2, W2, got, want)
         nbytes = _nb(X2) + _nb(W2) + S2 * fp2 * bins * 8.0
         if name == "cmul_mad_bias":
             nbytes += _nb(b2)
@@ -291,6 +304,51 @@ def check_kernels(smoke, ex, plan, device, gen):
               flush=True)
     print("kernels: " + json.dumps(sorted(results)), flush=True)
     return results
+
+
+def check_ragged(smoke, device, gen):
+    """The MAD and the segment conv at shapes that are no multiple of any
+    tile (the served shapes are): the MAD at every S, f, f' below with and
+    without the DC bias over 315 bins, and ``os_segment_conv`` with f = 1
+    and on specs whose A, B, C'' are ragged; tolerances as the served
+    shapes' checks."""
+    import torch
+
+    from repro_torch.core.fft_conv import precompute_kernel_fft
+    from repro_torch.core.overlap_save import plan_overlap_save
+    from repro_torch.kernels.cmul_mad import ops as cmul_ops
+    from repro_torch.kernels.os_segment import ops as seg_ops
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(device)
+
+    def crandn(*shape):
+        return torch.complex(randn(*shape), randn(*shape))
+
+    sp = (5, 7, 9)
+    for S in (1, 5, 37):
+        for f in (1, 3, 80):
+            for fp in (3, 41):
+                X, W, b = crandn(S, f, *sp), crandn(fp, f, *sp), randn(fp)
+                fft_shape = (sp[0], sp[1], 2 * (sp[2] - 1))
+                for name, call in (
+                    ("cmul_mad", lambda uk: cmul_ops.cmul_mad(X, W, use_kernels=uk)),
+                    ("cmul_mad_bias", lambda uk: cmul_ops.cmul_mad_bias(
+                        X, W, b, fft_shape=fft_shape, use_kernels=uk)),
+                ):
+                    _check_mad(smoke, f"{name} (ragged)", X, W, call(None), call(False))
+    for n, k, seg, f, fp in (((23, 29, 31), (3, 3, 3), 5, 1, 80),
+                             ((19, 21, 17), (3, 2, 3), 3, 3, 41)):
+        spec = plan_overlap_save(n, k, seg)
+        x = torch.relu(randn(2, f, *n))
+        W = precompute_kernel_fft(0.3 * randn(fp, f, *k), spec.fft_shape)
+        b = randn(fp)
+        got = seg_ops.os_segment_conv(x, W, b, spec)
+        want = seg_ops.os_segment_conv(x, W, b, spec, use_kernels=False)
+        ok, err = _close(got, want, **E2E)
+        smoke.check(ok, f"os_segment_conv (ragged) vs plain, x {tuple(x.shape)} W "
+                        f"{tuple(W.shape)} fft {spec.fft_shape} Q {spec.n_segments}: "
+                        f"max_abs_err {err:.3e} (atol {E2E['atol']}, rtol {E2E['rtol']})")
 
 
 def request_shapes(core: int, fov: int):
@@ -386,11 +444,14 @@ def offline(smoke, ex, vol, dense, device):
     smoke.check(ok, f"offline output vs dense oracle: max_abs_err {err:.3e}")
     return s
 
-def check_dense_kernels(smoke, ex, plan, params, device, gen):
+def check_dense_kernels(smoke, ex, plan, params, device, gen, hw):
     """Phase 4, kernels: the three the dense path adds, at its shapes."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.core.cost_model import conv_cost
+    from repro_torch.core.pruned_fft import pruned_rfftn
+    from repro_torch.kernels.cmul_mad import ops as cmul_ops
     from repro_torch.kernels.direct_conv3d import ops as conv3d_ops
     from repro_torch.kernels.mpf_pool import ops as mpf_ops
     from repro_torch.kernels.os_segment import ops as seg_ops
@@ -473,7 +534,39 @@ def check_dense_kernels(smoke, ex, plan, params, device, gen):
     w2 = params[i2][0]
     r["library_ms"] = time_ms(cudnn(lambda: F.conv3d(x2, w2, b2)), device)
     results["os_segment_conv"] = r
+    # what the planner's cost model predicts for this layer on this card
+    k2 = layers[i2].kernel_size
+    model = {prim: conv_cost(prim, S2, f2, fp, tuple(n2), k2[0]).time(hw) * 1e3
+             for prim in ("overlap_save", "direct")}
+    print(f"os_segment_conv: the cost model predicts overlap_save {model['overlap_save']:.3f} "
+          f"ms and direct {model['direct']:.3f} ms at these shapes on {hw.name}; measured "
+          f"{r['ms']:.3f} ms and cuDNN's direct {r['library_ms']:.3f} ms", flush=True)
+    # where its time goes: each pass of each sample chunk, in launch order
+    device_profile(lambda: seg_ops.os_segment_conv(x2, W2, b2, spec), device,
+                   f"os_segment_conv, x {tuple(x2.shape)}", top=12, timeline=True)
     del x2, got, want
+
+    # cmul_mad at the deepest fft_cached layer's S (operation-bound there),
+    # beside einsum: the second line of its row
+    i6 = next(i for i, pl in enumerate(layers)
+              if pl.prim == "fft_cached" and choices[i].in_shape[0] >= 1024)
+    S6, f6, n6 = choices[i6].in_shape
+    W6 = states[i6]["W"]
+    X6 = pruned_rfftn(randn(S6, f6, *n6), layers[i6].fft_shape)
+    bins = X6[0, 0].numel()
+    err = _check_mad(smoke, f"cmul_mad (layer {i6})", X6, W6,
+                     cmul_ops.cmul_mad(X6, W6),
+                     cmul_ops.cmul_mad(X6, W6, use_kernels=False))
+    flops = 8.0 * S6 * f6 * W6.shape[0] * bins
+    bms, bb = bound(_nb(X6) + _nb(W6) + S6 * W6.shape[0] * bins * 8.0, flops)
+    ms = time_ms(lambda: cmul_ops.cmul_mad(X6, W6), device)
+    pms = time_ms(lambda: cmul_ops.cmul_mad(X6, W6, use_kernels=False), device, reps=2)
+    lms = time_ms(lambda: torch.einsum("si...,ji...->sj...", X6, W6), device)
+    print(f"kernel cmul_mad (layer {i6}, S {S6}): X {tuple(X6.shape)} W {tuple(W6.shape)}: "
+          f"{ms:.3f} ms, plain {pms:.3f} ms, einsum {lms:.3f} ms, bound {bms:.3f} ms "
+          f"({bb}), {flops / ms / 1e6:.1f} GFLOP/s = {100 * flops / ms * 1e3 / PEAK_FP32:.1f}% "
+          f"of the fp32 peak; max_abs_err {err:.3e}", flush=True)
+    del X6
 
     # mpf_pool_window: the pool of the fused fft_cached+mpf pair, over the
     # inverse's output uncropped on the last axis
@@ -539,7 +632,7 @@ def run_dense(smoke, device, net, params, hw, m, batch, launches, serving, gen,
     engine = VolumeEngine(params, net, plan, device=device)
     smoke.check(not engine.executor._os_reuse and engine.executor.fuse_pairs,
                 "dense plan: dense walk with fused conv+pool pairs")
-    results = check_dense_kernels(smoke, engine.executor, plan, params, device, gen)
+    results = check_dense_kernels(smoke, engine.executor, plan, params, device, gen, hw)
     rng = np.random.default_rng(1)
     vols = [rng.normal(size=(net.in_channels,) + s).astype(np.float32) for s in shapes]
     dense = [
@@ -578,10 +671,11 @@ def profile_batch(engine, vol, device):
                    f"one batch of {xs.shape[0]} patches")
 
 
-def device_profile(fn, device, label, top=20):
+def device_profile(fn, device, label, top=20, timeline=False):
     """One call of ``fn`` under torch.profiler: device time by kernel, and
     the device's busy share of the call's wall time (one stream, so kernel
-    times do not overlap).  Returns (wall s, busy s, rows)."""
+    times do not overlap); with ``timeline``, also every device event in
+    launch order with its own time.  Returns (wall s, busy s, rows)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -609,6 +703,13 @@ def device_profile(fn, device, label, top=20):
           f"{busy * 1e3:.3f} ms ({100 * busy / wall:.1f}% of wall)", flush=True)
     for us, count, name in rows[:top]:
         print(f"profile: {us / 1e3:10.3f} ms {count:6d}x  {name[:110]}", flush=True)
+    if timeline:
+        events = sorted((e for e in prof.events()
+                         if str(getattr(e, "device_type", "")).endswith("CUDA")),
+                        key=lambda e: e.time_range.start)
+        for k, e in enumerate(events):
+            print(f"timeline: {k:3d} {e.time_range.elapsed_us() / 1e3:10.3f} ms  "
+                  f"{e.name[:110]}", flush=True)
     return wall, busy, rows
 
 
@@ -940,6 +1041,7 @@ def run(device, net, m: int, batch: int, hw, seed: int = 0, *, dense_m: int,
 
     engine = VolumeEngine(params, net, plan, fuse_os=False, device=device)
     results = check_kernels(smoke, engine.executor, plan, device, gen)
+    check_ragged(smoke, device, gen)
     launches = {name: 0 for name in KERNELS}
     serving = {}
     for fuse_os in (False, True):
@@ -999,6 +1101,11 @@ def main() -> int:
     t = time.perf_counter()
     build.library()
     print(f"kernel build: {time.perf_counter() - t:.1f} s", flush=True)
+    names = ("cmul_mad_kernel", "axis_product", "short_axis", "rows_gemm")
+    for entry, usage in build.ptxas_usage(names):
+        # from the kernel's name on: its template arguments, mangled
+        name = entry[min(entry.find(n) for n in names if n in entry):]
+        print(f"ptxas: {name[:48]}: {usage}", flush=True)
 
     device = torch.device("cuda", 0)
     results, failures = run(device, N337, m=4, batch=2, hw=H100_SXM, dense_m=8,

@@ -28,8 +28,11 @@ BUILD_DIR = CSRC / "build"
 LIB_NAME = "librepro_torch_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+# ptxas's report of each kernel's registers, shared memory and spills,
+# kept beside the library
+PTXAS_LOG = "ptxas.log"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,11 +44,12 @@ SIGNATURES = {
     "cmul_mad_c64": (_P, _P, _P, _P, _I, _I, _I, _L, _P),
     # x, out, S, f, nx, ny, nz, p, mx, my, mz, stream
     "mpf_pool_f32": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # F, W, nb, ea, eb, mr, mi, Z, Y1, Y2, out, NQ, f, fp, A, B, C, s, oy, oz, stream
-    "os_segment_f32": (_P,) * 11 + (_I,) * 9 + (_P,),
+    # F, W, nb, ea, eb, mr, mi, Z, Y1, Y2, out,
+    # N, Q, f, fp, A, B, C, s, oy, oz, j0, out0, L, stream
+    "os_segment_f32": (_P,) * 11 + (_I,) * 13 + (_P,),
     # x, fz, fy, fx, W, nb, ea, eb, mr, mi, bufA, bufB, bufC, out,
-    # N, Q, f, fp, E, seg, nx, ny, nz, A, B, C, s, oy, oz, stream
-    "os_segment_conv_f32": (_P,) * 14 + (_I,) * 15 + (_P,),
+    # N, Q, f, fp, E, seg, nx, ny, nz, A, B, C, s, oy, oz, out0, stream
+    "os_segment_conv_f32": (_P,) * 14 + (_I,) * 16 + (_P,),
     # x, w, out, S, f, fp, nx, ny, nz, kx, ky, kz, stream
     "conv3d_f32": (_P,) * 3 + (_I,) * 9 + (_P,),
     # q, k, v, lengths, out, B, S, Hkv, G, d, stream
@@ -89,13 +93,15 @@ def _build(out: Path) -> None:
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )))
-    errors = []
+    errors, logs = [], []
     for src, _, proc in procs:
         log, _ = proc.communicate()
+        logs.append(log)
         if proc.returncode != 0:
             errors.append(f"{src.name}:\n{log}")
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
+    (out.parent / PTXAS_LOG).write_text("".join(logs))
     lib = tmp / LIB_NAME
     link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(lib)] + [
         str(obj) for _, obj, _ in procs
@@ -122,6 +128,23 @@ def library() -> ctypes.CDLL:
     lib.cuda_error_string.argtypes = [ctypes.c_int]
     lib.cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def ptxas_usage(names) -> list:
+    """(kernel, ptxas's usage line) for each compiled kernel whose mangled
+    name contains one of ``names``, from the last build's log."""
+    path = BUILD_DIR / _digest() / PTXAS_LOG
+    rows, entry, spills = [], None, ""
+    for line in path.read_text().splitlines() if path.exists() else ():
+        if "Compiling entry function" in line:
+            entry, spills = line.split("'")[1], ""
+        elif "spill stores" in line:
+            spills = "; " + line.strip()
+        elif "Used" in line and entry is not None:
+            if any(n in entry for n in names):
+                rows.append((entry, line.split(":", 1)[-1].strip() + spills))
+            entry = None
+    return rows
 
 
 def stream_of(t: torch.Tensor) -> int:

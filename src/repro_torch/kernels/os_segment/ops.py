@@ -2,9 +2,10 @@
 
 Builds the per-spec inverse DFT matrices with the valid crop folded in
 (host-side, memoized per spec and device), computes the DC-bin bias
-column, launches the CUDA pipeline (``csrc/os_segment.cu``) or its plain
-version, and reassembles the per-segment output blocks into the valid
-output columns (the ``tail_len`` / ``lead`` crops of the unfused path).
+column, and launches the CUDA pipeline (``csrc/os_segment.cu``) or its
+plain version.  The pipeline's last pass writes each segment's output rows
+straight into the valid output columns (the ``tail_len`` / ``lead`` crops
+of the unfused path are its index map).
 
 Three entry points mirror ``core/overlap_save.py``:
 
@@ -134,20 +135,9 @@ def _nb_bias(b, fp, fft_shape, device) -> torch.Tensor:
     return (bias * n_total).contiguous()
 
 
-def _reassemble(out, spec, j0, fp, out_cols):
-    """(N, Q, f', s, oy, oz) segment blocks -> trailing ``out_cols`` valid
-    output columns (the unfused path's tail/lead crops)."""
-    s = spec.seg_core
-    oy, oz = spec.out[1], spec.out[2]
-    N, Q = out.shape[:2]
-    o = out.permute(0, 2, 1, 3, 4, 5).reshape(N, fp, Q * s, oy, oz)
-    L = spec.out[0] if out_cols is None else int(out_cols)
-    lead = (spec.out[0] - L) - j0 * s
-    return o[:, :, lead : lead + L].contiguous()
-
-
-def _launch(F, W, b, spec) -> torch.Tensor:
-    """The CUDA pipeline over all (sample, segment) pairs of F."""
+def _launch(F, W, b, spec, j0, L) -> torch.Tensor:
+    """The CUDA pipeline over all (sample, segment) pairs of F, segments
+    j0.. of ``spec``'s grid: the trailing ``L`` valid output columns."""
     check_operand(F, "F", torch.complex64)
     check_operand(W, "W", torch.complex64)
     N, Q, f, A, B, Cb = F.shape
@@ -166,12 +156,12 @@ def _launch(F, W, b, spec) -> torch.Tensor:
     Z = torch.empty((NQ, fp, A, B, Cb), dtype=torch.complex64, device=dev)
     Y1 = torch.empty((NQ, fp, s, B, Cb), dtype=torch.complex64, device=dev)
     Y2 = torch.empty((NQ, fp, s, oy, Cb), dtype=torch.complex64, device=dev)
-    out = torch.empty((N, Q, fp, s, oy, oz), dtype=torch.float32, device=dev)
+    out = torch.empty((N, fp, L, oy, oz), dtype=torch.float32, device=dev)
     err = build.library().os_segment_f32(
         F.data_ptr(), W.data_ptr(), nb.data_ptr(),
         ea.data_ptr(), eb.data_ptr(), mr.data_ptr(), mi.data_ptr(),
         Z.data_ptr(), Y1.data_ptr(), Y2.data_ptr(), out.data_ptr(),
-        NQ, f, fp, A, B, Cb, s, oy, oz, build.stream_of(F),
+        N, Q, f, fp, A, B, Cb, s, oy, oz, j0, spec.out[0], L, build.stream_of(F),
     )
     build.check(err, "os_segment")
     launches["os_segment"] += 1
@@ -197,10 +187,9 @@ def os_segment_fused(
     """
     if not resolve_use_kernels(use_kernels, F):
         return _ref.os_segment_fused(F, W, b, spec, out_cols)
-    q = F.shape[1]
-    j0 = spec.n_segments - q
-    out = _launch(F, W, b, spec)
-    return _reassemble(out, spec, j0, W.shape[0], out_cols)
+    j0 = spec.n_segments - F.shape[1]
+    L = spec.out[0] if out_cols is None else int(out_cols)
+    return _launch(F, W, b, spec, j0, L)
 
 
 def os_segment_fused_tail(
@@ -264,7 +253,7 @@ def os_segment_conv(
         torch.empty((chunk * el,), dtype=torch.complex64, device=dev)
         for el in (a_el, b_el, c_el)
     ]
-    out = torch.empty((N, Q, fp, s, oy, oz), dtype=torch.float32, device=dev)
+    out = torch.empty((N, fp) + tuple(spec.out), dtype=torch.float32, device=dev)
     lib = build.library()
     for n0 in range(0, N, chunk):
         n = min(chunk, N - n0)
@@ -274,9 +263,9 @@ def os_segment_conv(
             mr.data_ptr(), mi.data_ptr(),
             bufs[0].data_ptr(), bufs[1].data_ptr(), bufs[2].data_ptr(),
             out[n0].data_ptr(),
-            n, Q, f, fp, E, s, nx, ny, nz, A, B, Cb, s, oy, oz,
+            n, Q, f, fp, E, s, nx, ny, nz, A, B, Cb, s, oy, oz, spec.out[0],
             build.stream_of(x),
         )
         build.check(err, "os_segment_conv")
         launches["os_segment_conv"] += 1
-    return _reassemble(out, spec, 0, fp, None)
+    return out

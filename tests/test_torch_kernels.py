@@ -51,6 +51,10 @@ def _complex(rng, shape):
     (1, 1, 1, (4, 4, 3)),
     (2, 3, 5, (5, 4, 3)),
     (3, 9, 11, (7, 3, 2)),  # f' and bins not multiples of the TPU blocks
+    # S, f, f' no multiples of the CUDA kernel's 4 x 8 register tile or its
+    # 16- and 32-wide (s, j) block tiles; odd bin counts (315, 45)
+    (5, 3, 41, (5, 7, 9)),
+    (37, 13, 3, (3, 5, 3)),
 ])
 def test_cmul_mad_matches_reference(S, f, fp, sp, use_pallas):
     rng = np.random.default_rng(S * 100 + f)
@@ -64,6 +68,8 @@ def test_cmul_mad_matches_reference(S, f, fp, sp, use_pallas):
 @pytest.mark.parametrize("S,f,fp,sp", [
     (1, 1, 3, (4, 4, 3)),
     (2, 10, 9, (6, 5, 4)),  # f > F_CHUNK, f' not a multiple of FP_BLOCK
+    (5, 3, 41, (5, 7, 5)),  # ragged for the CUDA tiles, odd bin count (175)
+    (37, 1, 3, (3, 3, 3)),  # f = 1, S past one s-tile, 27 bins
 ])
 def test_cmul_mad_bias_matches_reference(S, f, fp, sp, use_pallas):
     rng = np.random.default_rng(7 + f)
@@ -253,7 +259,8 @@ def test_segment_conv_forward_passes_match_plain_version(f, fp):
     """The conv form's forward passes, replayed with torch ops on the CPU in
     the CUDA entry's order and buffer layouts: rows read straight from x
     (segment q's row e is x-row q·seg_core + e, zero past the input), the
-    real pass along z into (rows·ny, C''), the product along y into
+    real pass along z into (rows·ny, C'') (one real product against fz read
+    as the float matrix (nz, 2C'')), the product along y into
     (rows, B, C''), then along x into the segment spectra — equal to the
     plain version's segment FFT, and through the pipeline to its output."""
     _, spec, x, W, b = _conv_segment_problem(f, fp, seed=40 + f)
@@ -269,7 +276,10 @@ def test_segment_conv_forward_passes_match_plain_version(f, fp):
         for e in range(E):
             if q * s + e < nx:
                 rows[:, q, :, e] = xt[:, :, q * s + e]
-    X1 = rows.reshape(-1, nz).to(torch.complex64) @ fz  # (rows·ny, C'')
+    # rows_gemm: the real rows against fz read as the float matrix (nz, 2C'')
+    X1 = torch.view_as_complex(
+        (rows.reshape(-1, nz) @ torch.view_as_real(fz).reshape(nz, 2 * Cb))
+        .reshape(-1, Cb, 2).contiguous())  # (rows·ny, C'')
     X2 = torch.einsum("pyc,yb->pbc", X1.reshape(-1, ny, Cb), fy)
     F = torch.einsum("pebc,ea->pabc", X2.reshape(N * Q * f, E, B * Cb)
                      .reshape(N * Q * f, E, B, Cb), fx)
@@ -302,9 +312,10 @@ def test_inverse_mats_match_reference_unpadded():
 def test_segment_pipeline_passes_match_plain_version(f, fp):
     """The CUDA pipeline's arithmetic, replayed with torch ops on the CPU:
     MAD + DC-bin bias into a scratch spectrum, then the three crop-folded
-    inverse products (a, b, then the real hermitian pair on c), then the
-    wrapper's reassembly — equal to the plain version within the kernel
-    tolerance."""
+    inverse products (a, b, then c as one real product: the spectra read
+    as floats (P, 2C'') against mr and mi interleaved row by row, each
+    output row written to its valid output column) — equal to the plain
+    version within the kernel tolerance."""
     n, k, seg_core, _, F, W, b = _segment_problem(f, fp, seed=20 + f)
     spec = plan_overlap_save(n, k, seg_core)
     Ft, Wt, bt = torch.from_numpy(F), torch.from_numpy(W), torch.from_numpy(b)
@@ -318,11 +329,42 @@ def test_segment_pipeline_passes_match_plain_version(f, fp):
     Z = Z.reshape((N * Q * fp,) + tuple(Z.shape[2:]))
     Y1 = torch.einsum("mabc,ax->mxbc", Z, ea)
     Y2 = torch.einsum("mxbc,by->mxyc", Y1, eb)
-    out = (torch.einsum("mxyc,cz->mxyz", Y2.real, mr)
-           + torch.einsum("mxyc,cz->mxyz", Y2.imag, mi))
-    got = seg_ops._reassemble(out.reshape(N, Q, fp, s, oy, oz), spec, 0, fp, None)
+    Cb = mr.shape[0]
+    mri = torch.stack([mr, mi], dim=1).reshape(2 * Cb, oz)  # rows mr[0], mi[0], mr[1], ...
+    rows = torch.view_as_real(Y2.contiguous()).reshape(-1, 2 * Cb) @ mri
+    # the last pass's scatter: row (n, q, j, x, y) is output column
+    # q·seg_core + x, kept below out[0] (the tail segment's crop)
+    rows = rows.reshape(N, Q, fp, s, oy, oz)
+    got = torch.zeros((N, fp) + tuple(spec.out))
+    for q in range(Q):
+        for x in range(s):
+            if q * s + x < spec.out[0]:
+                got[:, :, q * s + x] = rows[:, q, :, x]
     want = seg_ops.os_segment_fused(Ft, Wt, bt, spec)
     np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+def test_ptxas_usage_reads_the_build_log(tmp_path, monkeypatch):
+    """The build keeps ptxas's report; ``ptxas_usage`` pairs each kernel
+    named in it with its registers, shared memory and spills."""
+    from repro_torch.kernels import build
+
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    log = tmp_path / build._digest() / build.PTXAS_LOG
+    log.parent.mkdir()
+    log.write_text(
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function '_ZN1a15cmul_mad_kernelILi8EEEv' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN1a15cmul_mad_kernelILi8EEEv\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 160 registers, used 1 barriers, 400 bytes cmem[0]\n"
+        "ptxas info    : Compiling entry function '_ZN1a8other_kEv' for 'sm_90a'\n"
+        "ptxas info    : Used 20 registers, 400 bytes cmem[0]\n"
+    )
+    rows = build.ptxas_usage(("cmul_mad_kernel",))
+    assert rows == [("_ZN1a15cmul_mad_kernelILi8EEEv",
+                     "Used 160 registers, used 1 barriers, 400 bytes cmem[0]; "
+                     "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads")]
 
 
 def test_wrappers_refuse_kernels_on_cpu_tensors():
