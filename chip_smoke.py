@@ -9,23 +9,25 @@ Phases, in order; any failure makes the exit code non-zero:
 
 1. Print the card's name and power limit (``nvidia-smi``), then build the
    CUDA kernels from ``src/repro_torch/csrc`` and print the build time and
-   ptxas's registers, shared memory and spills of the MAD's and the
-   segment conv's kernels.
+   ptxas's registers, shared memory and spills of the MAD's, the segment
+   conv's, the pool's and decode attention's kernels.
 2. Hold each CUDA kernel of the reuse path against its plain PyTorch
    version on the card, at the shapes the served n337 plan gives it (read
    off the compiled plan), with the tolerance printed beside it; time
    kernel, plain version and, where one PyTorch call computes the same
-   function, that call.  Then the MAD and ``os_segment_conv`` at ragged
-   shapes (no multiple of any tile), against their plain versions.
+   function, that call (and ``max_pool3d`` at stride 1 beside the pool, a
+   yardstick only).  Then the MAD, ``os_segment_conv`` and both pools at
+   ragged shapes (no multiple of any tile), against their plain versions.
 3. Serve full-width n337 (Table III: 80 maps, 10 layers; random weights
    from a seed) through ``VolumeEngine`` on an ``H100_SXM`` plan with the
    deployed primitives (``overlap_save`` at layer 0, ``fft_cached`` deeper,
    ``mpf`` pools, deep reuse on), three requests of different sizes, with
    ``fuse_os`` off and then on.  Every kernel's launch count is zeroed just
    before each run and read just after; outputs are held against the dense
-   oracle (``apply_dense_reference``, TF32 off).  The largest request is
-   swept once more offline (``PlanExecutor.run``) and its counters held
-   against ``predict_counts``.
+   oracle (``apply_dense_reference``, TF32 off).  One more serving tick of
+   the largest request runs under ``torch.profiler`` (device time by
+   kernel).  The largest request is swept once more offline
+   (``PlanExecutor.run``) and its counters held against ``predict_counts``.
 4. The dense path: the planner's own primitives for n337 on an H100
    (``plan_single``: direct, mpf, overlap_save, mpf, fft_cached, mpf,
    fft_cached ×3, direct), cut only in patch size (m=8, batch 2).  First the
@@ -45,8 +47,10 @@ Phases, in order; any failure makes the exit code non-zero:
 6. The LM serving path, after the ZNNi phases' memory is freed:
    a. ``decode_attn`` against its plain version at the served shapes
       (B 8, S 2048, Hkv 8, G 5, d 128, bf16, one length above S), in f32,
-      and on a ragged S=600; timed beside its bound and beside PyTorch's
-      ``scaled_dot_product_attention`` (timed only).
+      on a ragged S=600, on one 2048-row sequence, and with lengths on,
+      beside and past the split's chunk boundaries and S; timed beside its
+      bound and beside PyTorch's ``scaled_dot_product_attention`` (timed
+      only).
    b. Full-width, full-depth Qwen2.5-14B (48 layers, bf16, random weights
       from seed 0 drawn on the card) served through ``ServingEngine``
       (8 slots, max_seq 2048): 12 requests, more than the slots, with the
@@ -130,7 +134,10 @@ def _sync(device):
 
 
 def time_ms(fn, device, reps: int = 5, warmup: int = 1) -> float:
-    """Mean milliseconds per call: CUDA events around ``reps`` calls."""
+    """Mean milliseconds per call: CUDA events around ``reps`` calls.  The
+    calls queue behind a ~10 ms spin of the card, so a call whose host side
+    is slower than its kernels is timed by the card, not by the host's
+    launch rate."""
     import torch
 
     for _ in range(warmup):
@@ -141,6 +148,7 @@ def time_ms(fn, device, reps: int = 5, warmup: int = 1) -> float:
         for _ in range(reps):
             fn()
         return (time.perf_counter() - t) * 1e3 / reps
+    torch.cuda._sleep(20_000_000)  # clock cycles
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -297,6 +305,14 @@ def check_kernels(smoke, ex, plan, device, gen):
     r["bound_ms"], r["bound_by"] = bound(_nb(x1) + _nb(got), float(got.numel()) * (p**3 - 1))
     r["library_ms"] = None
     results["mpf_pool"] = r
+    # a bytes-bound yardstick only: max_pool3d at stride 1 computes the
+    # sliding max M in another layout, not the fragments in s·p³+o order
+    import torch.nn.functional as F
+
+    ms = time_ms(lambda: F.max_pool3d(x1, p, stride=1), device)
+    print(f"mpf_pool yardstick: F.max_pool3d(x {tuple(x1.shape)}, {p}, stride=1) "
+          f"{ms:.3f} ms (the sliding max, not the fragments; library stays null)",
+          flush=True)
     for name, r in results.items():
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.3f}"
         print(f"kernel {name}: {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
@@ -307,16 +323,20 @@ def check_kernels(smoke, ex, plan, device, gen):
 
 
 def check_ragged(smoke, device, gen):
-    """The MAD and the segment conv at shapes that are no multiple of any
-    tile (the served shapes are): the MAD at every S, f, f' below with and
-    without the DC bias over 315 bins, and ``os_segment_conv`` with f = 1
-    and on specs whose A, B, C'' are ragged; tolerances as the served
-    shapes' checks."""
+    """The MAD, the segment conv and the MPF pools at shapes that are no
+    multiple of any tile (the served shapes are): the MAD at every S, f,
+    f' below with and without the DC bias over 315 bins,
+    ``os_segment_conv`` with f = 1 and on specs whose A, B, C'' are
+    ragged, and ``mpf_pool``/``mpf_pool_window`` at p 2 and 3 with odd
+    extents that differ per axis (one past a 128-wide z tile), f = 1,
+    S = 1 and windows with an uncropped z tail; tolerances as the served
+    shapes' checks (the pools bitwise)."""
     import torch
 
     from repro_torch.core.fft_conv import precompute_kernel_fft
     from repro_torch.core.overlap_save import plan_overlap_save
     from repro_torch.kernels.cmul_mad import ops as cmul_ops
+    from repro_torch.kernels.mpf_pool import ops as mpf_ops
     from repro_torch.kernels.os_segment import ops as seg_ops
 
     def randn(*shape):
@@ -349,6 +369,25 @@ def check_ragged(smoke, device, gen):
         smoke.check(ok, f"os_segment_conv (ragged) vs plain, x {tuple(x.shape)} W "
                         f"{tuple(W.shape)} fft {spec.fft_shape} Q {spec.n_segments}: "
                         f"max_abs_err {err:.3e} (atol {E2E['atol']}, rtol {E2E['rtol']})")
+    for S, f, p, n, window in ((1, 1, 2, (23, 41, 131), None),
+                               (2, 3, 2, (35, 19, 67), None),
+                               (1, 5, 3, (17, 26, 35), None),
+                               (3, 1, 3, (14, 8, 71), None),
+                               (1, 1, 2, (33, 27, 36), (31, 27, 33)),
+                               (2, 4, 2, (15, 21, 135), (15, 17, 129)),
+                               (1, 2, 3, (20, 17, 40), (17, 14, 35))):
+        x = torch.relu(randn(S, f, *n))
+        if window is None:
+            got = mpf_ops.mpf_pool(x, p)
+            want = mpf_ops.mpf_pool(x, p, use_kernels=False)
+        else:
+            got = mpf_ops.mpf_pool_window(x, p, window)
+            want = mpf_ops.mpf_pool_window(x, p, window, use_kernels=False)
+        err = float((got - want).abs().max())
+        name = "mpf_pool" if window is None else f"mpf_pool_window (window {window})"
+        smoke.check(err == 0.0 and got.shape == want.shape,
+                    f"{name} (ragged) vs plain, x {tuple(x.shape)} p {p}: "
+                    f"max_abs_err {err:.3e} (exact)")
 
 
 def request_shapes(core: int, fov: int):
@@ -671,6 +710,19 @@ def profile_batch(engine, vol, device):
                    f"one batch of {xs.shape[0]} patches")
 
 
+def profile_tick(engine, vol, device):
+    """One reuse-path serving tick under torch.profiler: the largest
+    request once more, after one warm-up tick of its sweep; then drained."""
+    from repro_torch.serving import VolumeRequest
+
+    engine.submit(VolumeRequest(len(engine.finished) + 100, vol))
+    engine.step()
+    device_profile(engine.step, device,
+                   f"one reuse-path tick (fuse_os {engine.executor.fuse_os}) of "
+                   f"{engine.executor.batch} patches")
+    engine.run_until_drained()
+
+
 def device_profile(fn, device, label, top=20, timeline=False):
     """One call of ``fn`` under torch.profiler: device time by kernel, and
     the device's busy share of the call's wall time (one stream, so kernel
@@ -769,21 +821,25 @@ DA_TOL = {"bfloat16": dict(atol=2e-2, rtol=1e-2), "float32": dict(atol=1e-4, rto
 
 def check_decode_attn(smoke, device, gen, cases):
     """Phase 6a: ``decode_attn`` vs its plain version; the first case (the
-    served shapes) is timed beside its bound and PyTorch's SDPA."""
+    served shapes) is timed beside its bound and PyTorch's SDPA.  A case
+    may end with its lengths; otherwise they are drawn, the first S + 5."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attn import ops as da_ops
 
     result = None
-    for label, B, S, Hkv, G, d, dt in cases:
+    for label, B, S, Hkv, G, d, dt, *given in cases:
         dtype = getattr(torch, dt)
         H = Hkv * G
         q = torch.randn((B, H, d), generator=gen).to(device, dtype)
         k = torch.randn((B, S, Hkv, d), generator=gen).to(device, dtype)
         v = torch.randn((B, S, Hkv, d), generator=gen).to(device, dtype)
-        lengths = torch.randint(1, S + 1, (B,), generator=gen, dtype=torch.int32)
-        lengths[0] = S + 5  # a slot past its cache, as idle slots run
+        if given:
+            lengths = torch.tensor(given[0], dtype=torch.int32)
+        else:
+            lengths = torch.randint(1, S + 1, (B,), generator=gen, dtype=torch.int32)
+            lengths[0] = S + 5  # a slot past its cache, as idle slots run
         lengths = lengths.to(device)
         got = da_ops.decode_attn(q, k, v, lengths)
         want = da_ops.decode_attn(q, k, v, lengths, use_kernels=False)
@@ -1057,6 +1113,7 @@ def run(device, net, m: int, batch: int, hw, seed: int = 0, *, dense_m: int,
             del engine
             if device.type == "cuda":
                 torch.cuda.empty_cache()
+    profile_tick(engine, vols[0], device)
     offline(smoke, engine.executor, vols[0], dense[0], device)
     del engine, dense
     if device.type == "cuda":
@@ -1097,11 +1154,13 @@ def main() -> int:
     from repro_torch.configs.znni_nets import BENCH_NET, N337
     from repro_torch.core.hw import H100_SXM
     from repro_torch.kernels import build
+    from repro_torch.kernels.decode_attn.ops import CHUNK
 
     t = time.perf_counter()
     build.library()
     print(f"kernel build: {time.perf_counter() - t:.1f} s", flush=True)
-    names = ("cmul_mad_kernel", "axis_product", "short_axis", "rows_gemm")
+    names = ("cmul_mad_kernel", "axis_product", "short_axis", "rows_gemm",
+             "mpf_pool_kernel", "decode_attn_chunk", "decode_attn_combine")
     for entry, usage in build.ptxas_usage(names):
         # from the kernel's name on: its template arguments, mangled
         name = entry[min(entry.find(n) for n in names if n in entry):]
@@ -1116,7 +1175,17 @@ def main() -> int:
         device, get_config("qwen2.5-14b"),
         da_cases=[("served", 8, 2048, 8, 5, 128, "bfloat16"),
                   ("f32", 4, 1024, 8, 5, 128, "float32"),
-                  ("ragged", 3, 600, 8, 5, 128, "bfloat16")],
+                  ("ragged", 3, 600, 8, 5, 128, "bfloat16"),
+                  # one long sequence, where the split over S matters most
+                  ("single", 1, 2048, 8, 5, 128, "bfloat16", [2048]),
+                  # ends on, just past and just before a chunk boundary,
+                  # one row, and past S
+                  ("chunk ends", 5, 600, 8, 5, 128, "bfloat16",
+                   [CHUNK, 2 * CHUNK + 1, 2 * CHUNK - 1, 1, 605]),
+                  ("chunk ends f32", 3, 300, 4, 8, 64, "float32",
+                   [CHUNK, CHUNK + 1, 305]),
+                  # two 8-head blocks on the tensor cores, d no multiple of 16
+                  ("G 12, d 40", 2, 300, 2, 12, 40, "bfloat16", [300, CHUNK + 1])],
         slots=8, max_seq=2048, n_requests=12, prompt_range=(64, 1537),
         new_range=(16, 65))
     failures += lm_failures

@@ -52,9 +52,9 @@ SIGNATURES = {
     "os_segment_conv_f32": (_P,) * 14 + (_I,) * 16 + (_P,),
     # x, w, out, S, f, fp, nx, ny, nz, kx, ky, kz, stream
     "conv3d_f32": (_P,) * 3 + (_I,) * 9 + (_P,),
-    # q, k, v, lengths, out, B, S, Hkv, G, d, stream
-    "decode_attn_f32": (_P,) * 5 + (_I,) * 5 + (_P,),
-    "decode_attn_bf16": (_P,) * 5 + (_I,) * 5 + (_P,),
+    # q, k, v, lengths, part, out, B, S, Hkv, G, d, chunk, stream
+    "decode_attn_f32": (_P,) * 6 + (_I,) * 6 + (_P,),
+    "decode_attn_bf16": (_P,) * 6 + (_I,) * 6 + (_P,),
 }
 
 

@@ -10,6 +10,11 @@ A length above S attends over all S entries, as the reference's ``ref.py``
 does (its Pallas path would count the zero padding as valid there).
 ``lengths == 0`` is not part of the contract: ``attn_decode`` always
 passes ``lengths + 1``.
+
+The kernel splits S into chunks of ``CHUNK`` rows, one block each, and a
+second kernel combines the chunks' f32 partials; the wrapper allocates
+their workspace through PyTorch's caching allocator (``ref.decode_attn_split``
+replays the split on the CPU).
 """
 
 from __future__ import annotations
@@ -26,6 +31,10 @@ launches = {"decode_attn": 0}
 
 MAX_G = 16
 MAX_D = 256
+# cache rows a block of the split kernel takes (four 64-row tiles): up to
+# 8 chunks a sequence at the served S = 2048, about one wave of blocks on
+# the card at the served lengths
+CHUNK = 256
 _ENTRY = {torch.float32: "decode_attn_f32", torch.bfloat16: "decode_attn_bf16"}
 
 
@@ -59,9 +68,12 @@ def decode_attn(
                          f"with d % 8 == 0, got G={G}, d={d}")
     lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
+    # per (sequence, kv head, chunk): m[G], l[G], acc[G][d]
+    part = torch.empty(B * Hkv * -(-S // CHUNK) * G * (d + 2), dtype=torch.float32,
+                       device=q.device)
     err = getattr(build.library(), _ENTRY[q.dtype])(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), B, S, Hkv, G, d, build.stream_of(q),
+        part.data_ptr(), out.data_ptr(), B, S, Hkv, G, d, CHUNK, build.stream_of(q),
     )
     build.check(err, "decode_attn")
     launches["decode_attn"] += 1
