@@ -10,14 +10,16 @@ Phases, in order; any failure makes the exit code non-zero:
 1. Print the card's name and power limit (``nvidia-smi``), then build the
    CUDA kernels from ``src/repro_torch/csrc`` and print the build time and
    ptxas's registers, shared memory and spills of the MAD's, the segment
-   conv's, the pool's and decode attention's kernels.
+   conv's, the pool's, the direct conv's and decode attention's kernels.
 2. Hold each CUDA kernel of the reuse path against its plain PyTorch
    version on the card, at the shapes the served n337 plan gives it (read
    off the compiled plan), with the tolerance printed beside it; time
    kernel, plain version and, where one PyTorch call computes the same
    function, that call (and ``max_pool3d`` at stride 1 beside the pool, a
-   yardstick only).  Then the MAD, ``os_segment_conv`` and both pools at
-   ragged shapes (no multiple of any tile), against their plain versions.
+   yardstick only).  Then the MAD, ``os_segment_conv``, both pools and
+   ``conv3d`` (both its kernels) at ragged shapes (no multiple of any
+   tile), and ``conv3d`` once past 2^31 outputs, against their plain
+   versions.
 3. Serve full-width n337 (Table III: 80 maps, 10 layers; random weights
    from a seed) through ``VolumeEngine`` on an ``H100_SXM`` plan with the
    deployed primitives (``overlap_save`` at layer 0, ``fft_cached`` deeper,
@@ -323,14 +325,16 @@ def check_kernels(smoke, ex, plan, device, gen):
 
 
 def check_ragged(smoke, device, gen):
-    """The MAD, the segment conv and the MPF pools at shapes that are no
-    multiple of any tile (the served shapes are): the MAD at every S, f,
-    f' below with and without the DC bias over 315 bins,
-    ``os_segment_conv`` with f = 1 and on specs whose A, B, C'' are
-    ragged, and ``mpf_pool``/``mpf_pool_window`` at p 2 and 3 with odd
+    """The MAD, the segment conv, the MPF pools and the direct conv at
+    shapes that are no multiple of any tile (the served shapes are): the
+    MAD at every S, f, f' below with and without the DC bias over 315
+    bins, ``os_segment_conv`` with f = 1 and on specs whose A, B, C'' are
+    ragged, ``mpf_pool``/``mpf_pool_window`` at p 2 and 3 with odd
     extents that differ per axis (one past a 128-wide z tile), f = 1,
-    S = 1 and windows with an uncropped z tail; tolerances as the served
-    shapes' checks (the pools bitwise)."""
+    S = 1 and windows with an uncropped z tail, and ``conv3d`` (both of
+    its kernels, and the shapes either side of the launcher's choice) and
+    once past 2^31 outputs; tolerances as the served shapes' checks (the
+    pools bitwise)."""
     import torch
 
     from repro_torch.core.fft_conv import precompute_kernel_fft
@@ -388,6 +392,56 @@ def check_ragged(smoke, device, gen):
         smoke.check(err == 0.0 and got.shape == want.shape,
                     f"{name} (ragged) vs plain, x {tuple(x.shape)} p {p}: "
                     f"max_abs_err {err:.3e} (exact)")
+    check_ragged_conv3d(smoke, device, gen)
+
+
+def check_ragged_conv3d(smoke, device, gen):
+    """``conv3d`` at every f, f' and k below on odd per-axis extents (a
+    (y, z) plane of up to three segments of the plane kernel), S 1 to 3:
+    f * k^3 <= 16 takes ``conv3d_plane`` (f 2 with k 2^3 its 16-term
+    form), the rest ``conv3d_column``; then one layer-0-like call past 2^31
+    outputs, held against the plain version on its first and last three x
+    planes (the conv is local along x, so the plain version of x's first
+    and last four planes gives them)."""
+    import itertools
+
+    import torch
+
+    from repro_torch.kernels.direct_conv3d import ops as conv3d_ops
+    from repro_torch.kernels.direct_conv3d import ref as conv3d_ref
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(device)
+
+    extents = ((9, 41, 37), (13, 11, 37), (7, 35, 67), (11, 13, 15))
+    cases = [(1 + c % 3, f, fp, extents[c % len(extents)], k) for c, (f, fp, k) in
+             enumerate(itertools.product((1, 3, 80), (1, 3, 5, 80, 81),
+                                         ((2, 2, 2), (3, 3, 3), (3, 2, 1))))]
+    cases.append((2, 2, 7, (9, 41, 37), (2, 2, 2)))
+    for S, f, fp, n, k in cases:
+        x, w = randn(S, f, *n), randn(fp, f, *k)
+        got = conv3d_ops.conv3d(x, w)
+        want = conv3d_ops.conv3d(x, w, use_kernels=False)
+        ok, err = _close(got, want, **E2E)
+        kern = ("plane" if conv3d_ref.plane_plan(S, f, fp, n, k) is not None
+                else "column")
+        smoke.check(ok and got.shape == want.shape,
+                    f"conv3d (ragged, {kern}) vs plain, x {tuple(x.shape)} w "
+                    f"{tuple(w.shape)}: max_abs_err {err:.3e} (atol {E2E['atol']}, "
+                    f"rtol {E2E['rtol']})")
+    x, w = randn(1, 1, 302, 302, 302), randn(80, 1, 2, 2, 2)
+    got = conv3d_ops.conv3d(x, w)
+    _sync(device)
+    for label, xs, gs in (("first", x[:, :, :4], got[:, :, :3]),
+                          ("last", x[:, :, -4:], got[:, :, -3:])):
+        want = conv3d_ops.conv3d(xs.contiguous(), w, use_kernels=False)
+        ok, err = _close(gs, want, **E2E)
+        smoke.check(ok, f"conv3d past 2^31 outputs ({got.numel()}), x {tuple(x.shape)} "
+                        f"w {tuple(w.shape)}: {label} three x planes vs plain: "
+                        f"max_abs_err {err:.3e} (atol {E2E['atol']}, rtol {E2E['rtol']})")
+    del x, got
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
 
 
 def request_shapes(core: int, fov: int):
@@ -517,7 +571,7 @@ def check_dense_kernels(smoke, ex, plan, params, device, gen, hw):
         if pl.prim != "direct":
             continue
         S, f, n = choices[i].in_shape
-        w, b = params[i]
+        w = params[i][0]
         x = randn(S, f, *n)
         got = conv3d_ops.conv3d(x, w)
         want = conv3d_ops.conv3d(x, w, use_kernels=False)
@@ -530,7 +584,8 @@ def check_dense_kernels(smoke, ex, plan, params, device, gen, hw):
         bms, bb = bound(_nb(x) + _nb(w) + _nb(got), flops)
         ms = time_ms(lambda: conv3d_ops.conv3d(x, w), device)
         pms = time_ms(lambda: conv3d_ops.conv3d(x, w, use_kernels=False), device, reps=2)
-        lms = time_ms(cudnn(lambda: F.conv3d(x, w, b)), device)
+        # cuDNN computes the same function: no bias (direct_conv adds it after)
+        lms = time_ms(cudnn(lambda: F.conv3d(x, w)), device)
         print(f"conv3d layer {i}: {ms:.3f} ms, plain {pms:.3f} ms, cuDNN conv3d "
               f"{lms:.3f} ms, bound {bms:.3f} ms ({bb})", flush=True)
         r["max_abs_err"] = max(r["max_abs_err"], err)
@@ -696,7 +751,7 @@ def run_dense(smoke, device, net, params, hw, m, batch, launches, serving, gen,
 
 def profile_batch(engine, vol, device):
     """One full dense patch batch under torch.profiler (after a warm-up
-    batch)."""
+    batch), and the direct conv's share of its device time."""
     import numpy as np
 
     from repro_torch.volume.tiler import extract_patch
@@ -706,8 +761,15 @@ def profile_batch(engine, vol, device):
     xs = np.stack([extract_patch(vol, s, tiling.extent)
                    for s in tiling.patches[: ex.batch]])
     ex.run_patch_batch(xs)
-    device_profile(lambda: ex.run_patch_batch(xs), device,
-                   f"one batch of {xs.shape[0]} patches")
+    _, busy, rows = device_profile(lambda: ex.run_patch_batch(xs), device,
+                                   f"one batch of {xs.shape[0]} patches")
+    # the batch launches conv3d once a direct layer; a trace that shows
+    # fewer lost events, which the line says
+    conv_us = sum(us for us, _, name in rows if "conv3d_" in name)
+    conv_n = sum(n for _, n, name in rows if "conv3d_" in name)
+    want_n = sum(pl.prim == "direct" for pl in ex.compiled.layers)
+    print(f"profile: conv3d {conv_us / 1e3:.3f} ms in {conv_n} of the batch's {want_n} "
+          f"launches, of {busy * 1e3:.3f} ms device time", flush=True)
 
 
 def profile_tick(engine, vol, device):
@@ -1160,7 +1222,8 @@ def main() -> int:
     build.library()
     print(f"kernel build: {time.perf_counter() - t:.1f} s", flush=True)
     names = ("cmul_mad_kernel", "axis_product", "short_axis", "rows_gemm",
-             "mpf_pool_kernel", "decode_attn_chunk", "decode_attn_combine")
+             "mpf_pool_kernel", "conv3d_plane", "conv3d_column", "decode_attn_chunk",
+             "decode_attn_combine")
     for entry, usage in build.ptxas_usage(names):
         # from the kernel's name on: its template arguments, mangled
         name = entry[min(entry.find(n) for n in names if n in entry):]

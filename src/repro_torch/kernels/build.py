@@ -134,8 +134,14 @@ def ptxas_usage(names) -> list:
     """(kernel, ptxas's usage line) for each compiled kernel whose mangled
     name contains one of ``names``, from the last build's log."""
     path = BUILD_DIR / _digest() / PTXAS_LOG
+    return parse_ptxas(path.read_text() if path.exists() else "", names)
+
+
+def parse_ptxas(log: str, names) -> list:
+    """(kernel, usage line and spills) for each kernel in an ``-Xptxas=-v``
+    log whose mangled name contains one of ``names``."""
     rows, entry, spills = [], None, ""
-    for line in path.read_text().splitlines() if path.exists() else ():
+    for line in log.splitlines():
         if "Compiling entry function" in line:
             entry, spills = line.split("'")[1], ""
         elif "spill stores" in line:
