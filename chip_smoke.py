@@ -30,6 +30,14 @@ Phases, in order; any failure makes the exit code non-zero:
    the largest request runs under ``torch.profiler`` (device time by
    kernel).  The largest request is swept once more offline
    (``PlanExecutor.run``) and its counters held against ``predict_counts``.
+   Then host-staged streaming (``fuse_os`` on): a volume of six cores
+   along x is swept offline dense, then streamed from pinned host memory
+   under a ``ram_budget`` between the streaming prediction and the dense
+   ledger peak: output bitwise equal, ledger peak <= budget < dense peak
+   and equal to ``predict_memory``, counters equal to ``predict_counts``,
+   every scope released, each ledger peak printed beside
+   ``max_memory_allocated``; then the three requests are served through a
+   streaming ``VolumeEngine`` and held against the dense oracle.
 4. The dense path: the planner's own primitives for n337 on an H100
    (``plan_single``: direct, mpf, overlap_save, mpf, fft_cached, mpf,
    fft_cached ×3, direct), cut only in patch size (m=8, batch 2).  First the
@@ -42,7 +50,17 @@ Phases, in order; any failure makes the exit code non-zero:
    ``VolumeEngine`` with the launch counts zeroed before and read after,
    held against the dense oracle, and one more patch batch under
    ``torch.profiler``: device time by kernel, and the share of the
-   batch's wall time the device was busy.
+   batch's wall time the device was busy.  Then the paper's CPU+GPU
+   split: ``plan_hetero`` on (the paper's Xeon profile, ``H100_SXM``)
+   sweeps the third request offline, each stage on the device class of
+   its profile (the host's ``lscpu`` model printed beside the Xeon
+   profile), hand-off bytes equal to the plan's, each stage's seconds
+   beside its prediction; ``plan_pipeline2`` sweeps it through the
+   one-process two-stage loop; both against the dense oracle.  Last, the
+   GPU + host RAM sub-layers (the f' and the S split) at the first
+   80 -> 80 ``fft_cached`` layer's shapes with operands in pinned host
+   memory, against a one-shot conv on the card, timed beside it with the
+   bytes they move over the host link.
 5. The plain-pool path: ``tiled_apply`` on ``bench-net`` with the
    ``use_mpf=False`` plan's primitives (P=4: 64 shifted passes a patch),
    held against the dense oracle.
@@ -110,6 +128,12 @@ REACHED = {
     True: ("os_segment", "cmul_mad", "cmul_mad_bias", "mpf_pool"),
     "dense": ("conv3d", "os_segment_conv", "mpf_pool_window", "cmul_mad_bias",
               "cmul_mad", "mpf_pool"),
+    # hetero: the card stage (layers 0-8; layer 9 runs on the host, plain)
+    "hetero": ("conv3d", "os_segment_conv", "mpf_pool_window", "cmul_mad_bias",
+               "cmul_mad", "mpf_pool"),
+    "pipeline2": ("conv3d", "os_segment_conv", "mpf_pool_window", "cmul_mad_bias",
+                  "cmul_mad", "mpf_pool"),
+    "sublayer": ("cmul_mad",),
     "lm": ("decode_attn",),
 }
 # end-to-end tolerance of the reference's volume tests
@@ -537,6 +561,176 @@ def offline(smoke, ex, vol, dense, device):
     smoke.check(ok, f"offline output vs dense oracle: max_abs_err {err:.3e}")
     return s
 
+
+def _released(ex) -> bool:
+    return not (ex._sweep_hosts or ex._sweep_slabs or ex._sweeps
+                or ex._halo_caches or ex._key_bytes)
+
+
+def run_streamed(smoke, device, net, plan, params, vols, dense, launches, seed=0):
+    """Phase 3, streamed: an offline sweep dense, then host-staged under a
+    ``ram_budget``; then the three requests served by a streaming engine.
+    Returns the serving stats of each run."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import planner
+    from repro_torch.volume import PlanExecutor
+
+    fov, core = net.field_of_view(), plan.core
+    big = request_shapes(core, fov)[0]
+    shape = (6 * core + fov - 1, big[1], big[2])
+    vol = np.random.default_rng(seed + 5).normal(
+        size=(net.in_channels,) + shape).astype(np.float32)
+    stats, outs, budget, serve_budget = {}, {}, None, None
+    for mode in ("dense", "streamed"):
+        kw = {} if mode == "dense" else dict(ram_budget=budget)
+        ex = PlanExecutor(params, net, plan, fuse_os=True, device=device, **kw)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        _sync(device)
+        kernels.reset_launch_counts()
+        outs[mode] = ex.run(vol)
+        _sync(device)
+        counts = kernels.launch_counts()
+        s = ex.last_stats
+        alloc = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+        print(f"sweep {mode}: volume {shape}, {s['patches']} patches, {s['batches']} "
+              f"batches, {s['seconds']:.3f} s = {s['measured_voxps']:.1f} vox/s; "
+              f"peak_device_bytes (ledger) {s['peak_device_bytes']:.0f} (predicted "
+              f"{s['predicted_peak_device_bytes']:.0f}), max_memory_allocated {alloc}; "
+              f"launches {json.dumps(counts)}", flush=True)
+        stats[f"sweep {mode}"] = dict(seconds=s["seconds"], voxps=s["measured_voxps"],
+                                      ledger_peak=s["peak_device_bytes"],
+                                      max_memory_allocated=alloc)
+        c = ex.predict_counts(shape)
+        got = (s["os_seg_fft"], s["os_seg_hits"], s["os_mad_segments"],
+               s["deep_strip_patches"], s["deep_full_patches"])
+        smoke.check(got == (c.seg_fft, c.seg_hits, c.mad_segments, c.strip_patches,
+                            c.full_patches),
+                    f"sweep {mode}: counters {got} == predict_counts")
+        smoke.check(s["peak_device_bytes"] == s["predicted_peak_device_bytes"],
+                    f"sweep {mode}: ledger peak == predict_memory")
+        if mode == "dense":
+            dense_peak = s["peak_device_bytes"]
+            pred = planner.plan_stream_memory(
+                net, plan.prims, plan.m_final, shape, batch=plan.batch,
+                deep_reuse=True, streaming=True).device_bytes
+            budget = (pred + dense_peak) / 2
+            print(f"streaming: plan_stream_memory(streaming=True) {pred:.0f} B, dense "
+                  f"ledger peak {dense_peak:.0f} B: ram_budget {budget:.0f} B (the "
+                  f"streaming saving is {dense_peak - pred:.0f} B)", flush=True)
+        else:
+            smoke.check(ex.streaming and np.array_equal(outs["dense"], outs["streamed"]),
+                        "sweep streamed: output bitwise equal to the dense sweep")
+            smoke.check(s["peak_device_bytes"] <= budget < dense_peak,
+                        f"sweep streamed: ledger peak {s['peak_device_bytes']:.0f} <= "
+                        f"budget {budget:.0f} < dense peak {dense_peak:.0f}")
+            smoke.check(_released(ex), "sweep streamed: every sweep scope released")
+            for name in REACHED[True]:
+                smoke.check(counts[name] > 0, f"sweep streamed: {name} launched "
+                                              f"{counts[name]} times")
+            for name in launches:
+                launches[name] += counts[name]
+            # an engine budget that admits the three requests at once, so a
+            # tick still mixes two streamed sweeps
+            serve_budget = ex._ledger.current + sum(
+                ex.sweep_bytes_estimate(ex.bucket_shape(v.shape[1:])) for v in vols)
+            if device.type == "cuda":
+                # what the allocator's peak holds beyond the ledger (the
+                # same sweep once more; its counts are not read)
+                allocator_breakdown(lambda: ex.run(vol), device, "one more streamed sweep")
+        if device.type == "cuda" and mode == "streamed":
+            smoke.check(s["os_fused_segments"] == s["os_mad_segments"],
+                        "sweep streamed: os_segment computed every MAD segment")
+        del ex
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    want = torch.from_numpy(outs["dense"])
+    ok, err = _close(want, dense_oracle(net, params, vol, device), **E2E)
+    smoke.check(ok, f"sweep dense vs dense oracle: max_abs_err {err:.3e}")
+    print(f"streamed serve: ram_budget {serve_budget:.0f} B", flush=True)
+    engine, counts, stats["serve streamed"] = serve(
+        smoke, "streamed", REACHED[True], net, plan, params, vols, dense, device,
+        fuse_os=True, ram_budget=serve_budget)
+    smoke.check(engine.executor.streaming and _released(engine.executor),
+                "streamed serve: executor streaming, every scope released")
+    for name in launches:
+        launches[name] += counts[name]
+    del engine
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return stats
+
+
+def peak_live_blocks(events, baseline: int):
+    """Replay an allocator trace (``torch.cuda.memory._snapshot()``'s
+    ``device_traces`` entry) to the moment allocated bytes peak.  Returns
+    (peak bytes, {site: (blocks, bytes)} of the blocks allocated in the
+    trace and live then); ``baseline`` is the bytes allocated before it."""
+    live, cur, peak, at_peak = {}, baseline, baseline, {}
+    for e in events:
+        if e["action"] == "alloc":
+            live[e["addr"]] = (e["size"], _alloc_site(e.get("frames", ())))
+            cur += e["size"]
+            if cur > peak:
+                peak, at_peak = cur, dict(live)
+        elif e["action"] == "free_requested":
+            size, _ = live.pop(e["addr"], (e["size"], None))
+            cur -= size
+    sites = {}
+    for size, site in at_peak.values():
+        n, b = sites.get(site, (0, 0))
+        sites[site] = (n + 1, b + size)
+    return peak, sites
+
+
+def _alloc_site(frames) -> str:
+    """The innermost frame in the port's package, else the innermost.  The
+    caller's frame (this script) is the outermost, which orders the list."""
+    frames = list(frames)
+    own = [i for i, f in enumerate(frames) if f["filename"].endswith("chip_smoke.py")]
+    if own and own[0] == 0:
+        frames.reverse()
+    for f in frames:
+        if "repro_torch" in f["filename"]:
+            path = f["filename"][f["filename"].rfind("repro_torch"):]
+            return f"{path}:{f['line']} ({f['name']})"
+    return f"{frames[0]['filename']}:{frames[0]['line']}" if frames else "no frames"
+
+
+def allocator_breakdown(fn, device, label, top=12):
+    """Run ``fn`` with the CUDA allocator's history on and print what is
+    live at its allocated-bytes peak, by allocating line of the port."""
+    import torch
+
+    _sync(device)
+    baseline = torch.cuda.memory_allocated(device)
+    torch.cuda.memory._record_memory_history(
+        enabled="all", context="alloc", stacks="python", max_entries=1_000_000)
+    try:
+        fn()
+        _sync(device)
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    peak, sites = peak_live_blocks(snap["device_traces"][device.index or 0], baseline)
+    print(f"allocator: {label}: {baseline} B allocated before, peak {peak} B; live at "
+          f"the peak beyond the blocks held before:", flush=True)
+    for site, (n, b) in sorted(sites.items(), key=lambda kv: -kv[1][1])[:top]:
+        print(f"allocator: {b:14d} B in {n:4d} blocks from {site}", flush=True)
+    return peak
+
+
+def dense_oracle(net, params, vol, device):
+    import torch
+
+    from repro_torch.core import convnet
+
+    return convnet.apply_dense_reference(
+        params, net, torch.from_numpy(vol)[None].to(device))[0].cpu()
+
 def check_dense_kernels(smoke, ex, plan, params, device, gen, hw):
     """Phase 4, kernels: the three the dense path adds, at its shapes."""
     import torch
@@ -746,6 +940,10 @@ def run_dense(smoke, device, net, params, hw, m, batch, launches, serving, gen,
     del engine
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    t = time.perf_counter()
+    run_split(smoke, device, net, params, vols[2], dense[2], launches, serving)
+    run_sublayers(smoke, device, plan, params, gen, launches, serving)
+    print(f"split and sub-layer phases: {time.perf_counter() - t:.1f} s", flush=True)
     return results
 
 
@@ -770,6 +968,158 @@ def profile_batch(engine, vol, device):
     want_n = sum(pl.prim == "direct" for pl in ex.compiled.layers)
     print(f"profile: conv3d {conv_us / 1e3:.3f} ms in {conv_n} of the batch's {want_n} "
           f"launches, of {busy * 1e3:.3f} ms device time", flush=True)
+
+
+def host_cpu_model() -> str:
+    """The host CPU's model name, as ``lscpu`` and ``/proc/cpuinfo`` give it."""
+    import shutil
+
+    names = []
+    if shutil.which("lscpu") is not None:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True)
+        names += [f"lscpu: {line.split(':', 1)[1].strip()}"
+                  for line in out.stdout.splitlines() if line.startswith("Model name:")]
+    if os.path.exists("/proc/cpuinfo"):
+        with open("/proc/cpuinfo") as fh:
+            names += sorted({f"cpuinfo: {line.split(':', 1)[1].strip()}"
+                             for line in fh if line.startswith("model name")})
+    return "; ".join(names) or "not reported"
+
+
+def run_split(smoke, device, net, params, vol, want, launches, serving):
+    """Phase 4, split: the paper's CPU+GPU pipeline (``hetero``) and the
+    two-stage pipeline (``pipeline2``), one volume swept offline each."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core import planner
+    from repro_torch.core.hw import H100_SXM, XEON_E7_8890V3_4WAY
+    from repro_torch.volume import PlanExecutor
+
+    print(f"hetero: the host stage is priced on the {XEON_E7_8890V3_4WAY.name} profile; "
+          f"this host's CPU: {host_cpu_model()}, {os.cpu_count()} CPUs", flush=True)
+    plans = {
+        "hetero": planner.plan_hetero(net, (XEON_E7_8890V3_4WAY, H100_SXM), max_m=8),
+        "pipeline2": planner.plan_pipeline2(net, H100_SXM, chips_per_stage=1, max_m=8),
+    }
+    for label, plan in plans.items():
+        if plan is None:
+            smoke.check(False, f"{label}: the planner found no plan")
+            continue
+        print(f"{label} plan: devices {plan.devices}, theta {plan.theta}, m "
+              f"{plan.m_final}, batch {plan.batch}, core {plan.core}, prims {plan.prims}, "
+              f"predicted {plan.throughput:.1f} vox/s, stage_times {plan.stage_times}, "
+              f"xfer_bytes {plan.xfer_bytes:.0f}", flush=True)
+        ex = PlanExecutor(params, net, plan, device=device)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        _sync(device)
+        kernels.reset_launch_counts()
+        out = ex.run(vol)
+        _sync(device)
+        counts = kernels.launch_counts()
+        s = ex.last_stats
+        alloc = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+        print(f"{label}: volume {vol.shape[1:]}, {s['patches']} patches, {s['batches']} "
+              f"batches ({s['padded_patches']} padding), {s['seconds']:.3f} s = "
+              f"{s['measured_voxps']:.1f} vox/s (predicted {s['predicted_voxps']:.1f}); "
+              f"peak_device_bytes (ledger) {s['peak_device_bytes']:.0f}, "
+              f"max_memory_allocated {alloc}; launches {json.dumps(counts)}", flush=True)
+        got = torch.from_numpy(out)
+        ok, err = _close(got, want, **E2E)
+        smoke.check(ok and bool(torch.isfinite(got).all()),
+                    f"{label}: output {tuple(out.shape)} vs dense oracle: max_abs_err "
+                    f"{err:.3e} (atol {E2E['atol']}, rtol {E2E['rtol']})")
+        for name in REACHED[label]:
+            smoke.check(counts[name] > 0, f"{label}: {name} launched {counts[name]} times")
+        for name in launches:
+            launches[name] += counts[name]
+        row = dict(seconds=s["seconds"], voxps=s["measured_voxps"],
+                   predicted_voxps=s["predicted_voxps"], ledger_peak=s["peak_device_bytes"],
+                   max_memory_allocated=alloc)
+        if label == "hetero":
+            devs = [str(d) for d in ex.stage_devices]
+            for k in (0, 1):
+                print(f"hetero stage {k} ({plan.devices[k]} profile) ran on {devs[k]}: "
+                      f"{s[f'stage{k}_seconds']:.3f} s, predicted "
+                      f"{s[f'predicted_stage{k}_seconds']:.3f} s", flush=True)
+            print(f"hetero hand-off: {s['xfer_bytes']:.0f} B in {s['xfer_seconds']:.3f} s "
+                  f"({s['xfer_bytes'] / s['xfer_seconds'] / 1e9:.2f} GB/s through pinned "
+                  f"host memory), predicted {s['predicted_xfer_bytes']:.0f} B in "
+                  f"{s['predicted_xfer_seconds']:.3f} s", flush=True)
+            smoke.check(s["xfer_bytes"] == s["predicted_xfer_bytes"],
+                        f"hetero: xfer_bytes {s['xfer_bytes']:.0f} == predicted "
+                        f"{s['predicted_xfer_bytes']:.0f}")
+            smoke.check(devs[0] == str(device) and devs[1] == "cpu",
+                        f"hetero: stage 0 on {devs[0]}, stage 1 on {devs[1]}")
+            row.update({k: s[k] for k in (
+                "stage0_seconds", "stage1_seconds", "xfer_seconds", "xfer_bytes",
+                "predicted_stage0_seconds", "predicted_stage1_seconds",
+                "predicted_xfer_seconds")}, stage_devices=devs)
+        serving[label] = row
+        del ex
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def run_sublayers(smoke, device, plan, params, gen, launches, serving):
+    """Phase 4, sub-layers: the f' and the S split at the first 80 -> 80
+    ``fft_cached`` layer's shapes, operands in pinned host memory, against
+    a one-shot ``conv_apply`` on the card."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.core.primitives import conv_apply
+    from repro_torch.core.staging import pin
+    from repro_torch.core.sublayer import streamed_conv_batch, streamed_conv_out_channels
+
+    i = next(i for i, c in enumerate(plan.choices) if c.prim == "fft_cached")
+    S, f, n = plan.choices[i].in_shape
+    w, b = params[i]
+    x_host = pin(torch.randn((S, f, *n), generator=gen), device)
+    w_host, b_host = pin(w.cpu(), device), pin(b.cpu(), device)
+    x_dev = x_host.to(device)
+
+    def wall(fn, reps=2):
+        fn()
+        _sync(device)
+        t = time.perf_counter()
+        for _ in range(reps):
+            r = fn()
+        _sync(device)
+        return r, (time.perf_counter() - t) * 1e3 / reps
+
+    want, one_ms = wall(lambda: conv_apply("fft", x_dev, w, b))
+    want = want.cpu()
+    moved_in = _nb(x_host) + _nb(w_host) + _nb(b_host)
+    print(f"sub-layers: layer {i} x {tuple(x_host.shape)} w {tuple(w.shape)}; one-shot "
+          f"conv_apply('fft') on the card (operands there) {one_ms:.3f} ms", flush=True)
+    row = dict(one_shot_ms=one_ms)
+    for split, fn, chunk in (("out_channels", streamed_conv_out_channels, 16),
+                             ("batch", streamed_conv_batch, max(1, S // 4))):
+        kernels.reset_launch_counts()
+        got, ms = wall(lambda: fn(x_host, w_host, b_host, chunk=chunk, variant="fft",
+                                  device=device), reps=1)
+        counts = kernels.launch_counts()
+        moved = moved_in + _nb(got)
+        ok, err = _close(got, want, **E2E)
+        smoke.check(ok and got.device.type == "cpu",
+                    f"sub-layer {split} (chunk {chunk}) vs one-shot conv: max_abs_err "
+                    f"{err:.3e} (atol {E2E['atol']}, rtol {E2E['rtol']})")
+        print(f"sub-layer {split} (chunk {chunk}): {ms:.3f} ms (one-shot {one_ms:.3f} ms), "
+              f"{moved:.0f} B over the host link (computed from the shapes) = "
+              f"{moved / ms / 1e6:.2f} GB/s; launches {json.dumps(counts)}", flush=True)
+        for name in REACHED["sublayer"]:
+            smoke.check(counts[name] > 0, f"sub-layer {split}: {name} launched "
+                                          f"{counts[name]} times")
+        for name in launches:
+            launches[name] += counts[name]
+        row[split] = dict(ms=ms, chunk=chunk, host_link_bytes=moved)
+        del got
+    serving["sublayers"] = row
+    del x_host, x_dev, want
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
 
 
 def profile_tick(engine, vol, device):
@@ -1177,7 +1527,14 @@ def run(device, net, m: int, batch: int, hw, seed: int = 0, *, dense_m: int,
                 torch.cuda.empty_cache()
     profile_tick(engine, vols[0], device)
     offline(smoke, engine.executor, vols[0], dense[0], device)
-    del engine, dense
+    del engine
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    serving.update(run_streamed(smoke, device, net, plan, params, vols, dense, launches,
+                                seed))
+    print(f"streamed phase: {time.perf_counter() - t:.1f} s", flush=True)
+    del dense
     if device.type == "cuda":
         torch.cuda.empty_cache()
 

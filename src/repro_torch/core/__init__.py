@@ -11,7 +11,9 @@ mpf          — max-pooling fragments + recombination, plain pooling
 primitives   — primitive registry (cost+setup+apply) and CompiledPlan
 cost_model   — Tables I/II analytics feeding the planner
 planner      — memory-constrained throughput maximization (+ strategies)
-pipeline     — the two-stage pipeline's steady-state cadence
+pipeline     — the two-stage CPU+GPU pipeline: schedule, stages, placement
+sublayer     — the GPU + host RAM sub-layers (f' and S splits)
+staging      — host → device copies on a side CUDA stream
 convnet      — parameters, apply_plan and the dense sliding-window oracle
 hw           — hardware model constants (H100 SXM target)
 """
@@ -29,4 +31,6 @@ from . import (  # noqa: F401
     planner,
     primitives,
     pruned_fft,
+    staging,
+    sublayer,
 )

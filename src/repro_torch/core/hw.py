@@ -71,6 +71,19 @@ TITAN_X = HardwareSpec(
     vmem_bytes=3 * 2**20,
 )
 
+# Profiles of host CPUs.  A hetero stage priced on one runs on the CPU
+# with the plain versions (``pipeline.hetero_stage_devices``); every other
+# profile stands for a card.  The port has no profile of the card
+# machine's own host CPU, so hetero plans price their host stage on the
+# paper's Xeon.
+HOST_CPUS = frozenset({XEON_E7_8890V3_4WAY.name})
+
+
+def is_host_cpu(profile_name: str) -> bool:
+    """Is the named device profile a host CPU (not an accelerator)?"""
+    return profile_name in HOST_CPUS
+
+
 # The paper's CPU+GPU machine as a device set: the canonical argument to
 # ``planner.plan_hetero`` / ``plan_all_strategies(devices=...)`` for
 # reproducing its CPU-vs-GPU-vs-pipeline tables analytically.

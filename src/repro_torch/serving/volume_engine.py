@@ -51,9 +51,9 @@ the one fused step.
 Port notes: ``device=None`` means the card (the executor raises without
 one); ``use_kernels`` is the port's kernel tri-state.  Plans without
 overlap-save reuse tick through the executor's dense walk over patches
-cut from the request's host volume.  Host-staged streaming and
-per-request sweep axes other than the executor's raise
-``NotImplementedError`` in the executor until their slices land.
+cut from the request's host volume.  Per-request sweep axes other than
+the executor's raise ``NotImplementedError`` in the executor until their
+slice lands (ROADMAP.md Queue 1, item 6f).
 """
 
 from __future__ import annotations

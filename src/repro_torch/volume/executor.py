@@ -40,18 +40,37 @@ grid pinned to the patch core, and the pools are ``mpf``:
   os_segment CUDA kernel computed during ``run``, read off its wrapper's
   counter (equal to ``os_mad_segments`` on the card, else 0).
 
-Both keep a ``_DeviceLedger`` of every executor-managed device buffer;
-``last_stats["peak_device_bytes"]`` reports its per-sweep peak, which
-``predict_memory`` reproduces for reuse plans.
+Host-staged streaming (``ram_budget``/``streaming``, reuse plans): the
+padded volume stays in pinned HOST memory and never enters the ledger.
+Chunks are capped at x-plane boundaries (``tiler.chunk_patches``), so each
+chunk reads one constant-shape input x-slab ``[x0, x0 + span)``; ``_slab``
+copies it to the card on a side CUDA stream (``core.staging``), and
+``_run_batched`` stages the next plane's slab while the current chunk
+runs.  The eviction sweep (``_evict_left_of``) frees spectra, halos and
+slabs the stream moved past.  The walks are the dense mode's — only the
+volume operand and the slab-relative miss starts change — so streamed
+output is bitwise equal to dense.
+
+Split strategies (``pipeline2``/``hetero`` plans) walk raw patches through
+layers [0, θ) and [θ, L) as two stages.  ``pipeline2`` runs the
+queue-depth-1 loop ``core.pipeline.pipelined_apply`` in one process;
+``hetero`` places each stage on the device class of the profile it was
+priced on (``pipeline.hetero_stage_devices``: a host-CPU profile's stage
+runs on the CPU with the plain versions, the other on the executor's
+device with the kernels) and hands the split activation over through
+pinned host memory, counting its bytes.
+
+Every mode keeps a ``_DeviceLedger`` of the executor-managed device
+buffers; ``last_stats["peak_device_bytes"]`` reports its per-sweep peak,
+which ``predict_memory`` reproduces for reuse plans.
 
 PyTorch runs eagerly, so nothing is traced; the executor still records
 the distinct step keys the reference's jit would specialize on, so
 ``last_stats["retraces"]`` keeps its meaning.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): host-staged streaming (``ram_budget``/``streaming``), per-request
-sweep axes other than the executor's, the boundary handoff of the sharded
-fleet, tuned configs, and the ``hetero``/``pipeline2`` split strategies.
+item): per-request sweep axes other than the executor's, the boundary
+handoff of the sharded fleet, and tuned configs.
 """
 
 from __future__ import annotations
@@ -68,16 +87,19 @@ from ..configs.base import ConvNetConfig
 from ..core import overlap_save as os_mod
 from ..core.fft_conv import fft_conv_pool_fused_halo
 from ..core.mpf import recombine_fragments
+from ..core.pipeline import hetero_stage_devices, make_stage_fns, pipelined_apply
 from ..core.planner import Plan
 from ..core.primitives import (
     CompiledPlan,
     PreparedLayer,
+    apply_prepared_range,
     compile_plan,
     conv_primitive,
     plan_input_size,
     pool_primitive,
     resolve_primitive,
 )
+from ..core.staging import HostStager, pin
 from ..kernels.dispatch import DeviceLike, resolve_device, resolve_use_kernels
 from ..kernels.os_segment import ops as _seg_ops
 from .tiler import (
@@ -141,10 +163,11 @@ class _DeviceLedger:
     """Accounting of the executor-managed device working set (bytes).
 
     ``current`` tracks buffers the executor holds across steps (prepared
-    states, cached segment spectra, activation halos, a sweep's resident
-    volume); ``transient`` samples a step's in-flight extras on top of
-    ``current``.  ``peak`` is ``last_stats["peak_device_bytes"]``, which
-    the planner's ``predict_stream_peak`` simulation reproduces.
+    states, staged slabs, cached segment spectra, activation halos, a
+    non-streaming sweep's resident volume); ``transient`` samples a step's
+    in-flight extras on top of ``current``.  ``peak`` is
+    ``last_stats["peak_device_bytes"]``, which the planner's
+    ``predict_stream_peak`` simulation reproduces.
     """
 
     def __init__(self) -> None:
@@ -191,6 +214,19 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
 
 
+def _states_to(states, device: torch.device):
+    """A copy of prepared state dicts with every tensor on ``device``."""
+    return [
+        {k: v.to(device) if isinstance(v, torch.Tensor) else v for k, v in st.items()}
+        for st in states
+    ]
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 class PlanExecutor:
     """Bind a Plan (or explicit prims + fragment size) to a volume sweep."""
 
@@ -203,6 +239,7 @@ class PlanExecutor:
         prims: Optional[Sequence[str]] = None,
         m: Optional[int] = None,
         batch: Optional[int] = None,
+        theta: int = -1,
         use_kernels: Optional[bool] = None,
         fuse_pairs: Optional[bool] = None,
         fprime_chunk=None,
@@ -233,20 +270,27 @@ class PlanExecutor:
             prims = plan.prims
             m = plan.m_final
             batch = batch or plan.batch
-            if plan.strategy in ("pipeline2", "hetero"):
-                raise _not_ported(
-                    "the hetero/pipeline2 split strategies", "Queue 1 item 6h"
-                )
+            theta = plan.theta if plan.strategy in ("pipeline2", "hetero") else -1
             if ram_budget is None:
                 ram_budget = plan.ram_budget
+        # hetero plans run the split on two devices, each stage where its
+        # profile says (see run/_run_hetero)
+        self.hetero = plan is not None and plan.strategy == "hetero"
+        self.stage_devices = (
+            hetero_stage_devices(plan.devices, self.device) if self.hetero else None
+        )
         if prims is None or m is None:
             raise ValueError("need either a Plan or explicit prims + m")
-        if ram_budget is not None or streaming:
-            raise _not_ported("host-staged streaming", "Queue 1 item 6e")
-        self.streaming = False
+        # a plan solved under a RAM budget runs host-staged; ``streaming``
+        # can force either mode
+        self.ram_budget = ram_budget
+        self.streaming = (
+            bool(streaming) if streaming is not None else ram_budget is not None
+        )
         self.prims = tuple(prims)
         self.m = m
         self.batch = max(1, batch or 1)
+        self.theta = theta
         # the caller's tri-state goes to every wrapper; the resolved value
         # says whether this executor's data runs through the CUDA kernels
         self._use_kernels = use_kernels
@@ -276,7 +320,13 @@ class PlanExecutor:
         # -- overlap-save input-spectra reuse state --------------------------
         self._os_reuse = self.prims[0] == "overlap_save" and self.uses_mpf
         self._sweeps: Dict[int, Dict[Tuple[int, int, int], Any]] = {}
-        self._sweep_vols: Dict[int, torch.Tensor] = {}
+        self._sweep_vols: Dict[int, torch.Tensor] = {}  # non-streaming scopes
+        self._sweep_hosts: Dict[int, torch.Tensor] = {}  # streaming scopes
+        # staged slabs per scope: x0 -> (device slab, its copy's ready event)
+        self._sweep_slabs: Dict[int, Dict[int, Tuple[torch.Tensor, Any]]] = {}
+        self._stager = HostStager(self.device) if self.streaming else None
+        self._hetero_states = None
+        self._hetero_stats: Dict[str, float] = {}
         self._key_bytes: Dict[Tuple[int, Tuple[int, int, int]], float] = {}
         self._sweep_counter = 0
         self._os_misses = 0
@@ -436,7 +486,10 @@ class PlanExecutor:
         spectra never leak across requests.  ``padded`` must already be in
         the sweep axis's working frame.  The volume is extended along
         working axis 0 so the aligned grid's tail segments stay in bounds,
-        then uploaded to the device once.
+        then either uploaded to the device once (dense mode) or kept in
+        pinned host memory (streaming mode), from which ``_slab`` stages
+        one slab per plane: peak device bytes then scale with the slab,
+        not the volume.
         """
         axis = self.sweep_axis if sweep_axis is None else int(sweep_axis)
         if axis != self.sweep_axis:
@@ -450,6 +503,13 @@ class PlanExecutor:
         token = self._sweep_counter
         self._sweeps[token] = {}
         self._sweep_axes[token] = axis
+        if self.streaming:
+            host = np.asarray(padded, np.float32)
+            if short:
+                host = np.pad(host, ((0, 0), (0, short), (0, 0), (0, 0)))
+            self._sweep_hosts[token] = pin(host, self.device)
+            self._sweep_slabs[token] = {}
+            return token
         vol = torch.as_tensor(np.asarray(padded, np.float32), device=self.device)
         if short:
             vol = torch.nn.functional.pad(vol, (0, 0, 0, 0, 0, short))
@@ -462,13 +522,44 @@ class PlanExecutor:
         vol = self._sweep_vols.pop(token, None)
         if vol is not None:
             self._ledger.free(_nbytes(vol))
+        self._sweep_hosts.pop(token, None)
+        for slab, _ in self._sweep_slabs.pop(token, {}).values():
+            self._ledger.free(_nbytes(slab))
         for key in self._sweeps.pop(token, {}):
             self._ledger.free(self._key_bytes.pop((token, key), 0.0))
         for entry in self._halo_caches.pop(token, {}).values():
             self._ledger.free(sum(_nbytes(h) for h in entry))
 
+    # -- host-staged streaming slabs ----------------------------------------
+
+    def _slab(self, token: int, x0: int) -> Tuple[torch.Tensor, Any]:
+        """Stage the input x-slab ``[x0, x0 + span)`` of a streaming sweep.
+
+        Every chunk of a plane reads the same constant-shape slab (the
+        plane cap of ``tiler.chunk_patches`` guarantees it).  The copy runs
+        on the stager's side stream; returns ``(slab, ready)``, and a
+        reader makes the compute stream wait on ``ready`` before its first
+        read (``_stager.wait``).  Already-staged slabs are returned as they
+        are, so ``_run_batched`` can stage the next plane's slab while the
+        current chunk runs.
+        """
+        slabs = self._sweep_slabs.setdefault(token, {})
+        got = slabs.get(x0)
+        if got is None:
+            span = self.compiled.layers[0].os_spec.span
+            got = self._stager.stage(self._sweep_hosts[token][:, x0 : x0 + span])
+            slabs[x0] = got
+            self._ledger.alloc(_nbytes(got[0]))
+        return got
+
+    def _drop_slabs(self, token: int, keep) -> None:
+        slabs = self._sweep_slabs.get(token, {})
+        for x0 in [x for x in slabs if x not in keep]:
+            self._ledger.free(_nbytes(slabs.pop(x0)[0]))
+
     def _evict_left_of(self, token: int, x_lo: int) -> None:
-        """Free every cache entry strictly left of ``x_lo`` (both caches).
+        """Free every cache entry strictly left of ``x_lo`` (both caches,
+        and a streaming sweep's slabs).
 
         Exact by the tiler's non-decreasing-x patch stream: no later patch
         of this sweep can resolve an evicted key.
@@ -481,6 +572,10 @@ class PlanExecutor:
         if halo_cache:
             for dead in [k for k in halo_cache if k[0] < x_lo]:
                 self._ledger.free(sum(_nbytes(h) for h in halo_cache.pop(dead)))
+        if self.streaming:
+            self._drop_slabs(
+                token, {x for x in self._sweep_slabs.get(token, {}) if x >= x_lo}
+            )
 
     # -- the walks -------------------------------------------------------------
 
@@ -645,10 +740,23 @@ class PlanExecutor:
                 and start in halo_cache
             )
             (strip_rows if eligible else full_rows).append(idx)
-        outs: List[Optional[np.ndarray]] = [None] * len(meta)
+        groups: List[Tuple[List[int], bool]] = []
         for rows, strip in ((full_rows, False), (strip_rows, True)):
             if not rows:
                 continue
+            if self.streaming:
+                # one staged slab serves one x-plane: sub-partition the
+                # group so every step reads a single slab (serving ticks
+                # can pop patches spanning planes; offline chunks are
+                # already plane-capped)
+                by_plane: Dict[int, List[int]] = {}
+                for i in rows:
+                    by_plane.setdefault(meta[i][2][0], []).append(i)
+                groups.extend((by_plane[x], strip) for x in sorted(by_plane))
+            else:
+                groups.append((rows, strip))
+        outs: List[Optional[np.ndarray]] = [None] * len(meta)
+        for rows, strip in groups:
             ys, halos = self._run_os_group(token, [meta[i] for i in rows], strip)
             for j, idx in enumerate(rows):
                 outs[idx] = ys[j]
@@ -695,8 +803,18 @@ class PlanExecutor:
         self._os_mad_segments += len(pattern)
         if self.fuse_os:
             self._fused_pair_calls += len(metas) * len(self._fused_pairs)
-        vol = self._sweep_vols[token]
-        starts = np.asarray(misses, np.int64) if misses else None
+        if self.streaming:
+            # the group is one x-plane: its segments all lie in the staged
+            # slab [x0, x0 + span), so miss starts shift into slab
+            # coordinates and the step's volume operand keeps one shape
+            x0 = metas[0][2][0]
+            vol, ready = self._slab(token, x0)
+            self._stager.wait(ready)
+            off = np.asarray([x0, 0, 0], np.int64)
+        else:
+            vol = self._sweep_vols[token]
+            off = np.zeros(3, np.int64)
+        starts = np.asarray(misses, np.int64) - off if misses else None
         if strip:
             halos_in = tuple(
                 torch.cat(
@@ -810,9 +928,19 @@ class PlanExecutor:
             while Mp < M:
                 Mp *= 2
             starts = np.asarray(keys_m + [keys_m[-1]] * (Mp - M), np.int64)
-            F_all_miss = os_mod.slice_segment_spectra(
-                self._sweep_vols[token], starts, spec0, self.extent
-            )
+            if self.streaming:
+                # a transient slab covering this scope's misses; its shape
+                # varies per tick (the single-sweep path is the one with
+                # the constant-shape slab)
+                x_min = min(k[0] for k in keys_m)
+                x_hi = max(k[0] for k in keys_m) + spec0.seg_extent
+                vol, ready = self._stager.stage(self._sweep_hosts[token][:, x_min:x_hi])
+                self._stager.wait(ready)
+                self._ledger.transient(_nbytes(vol))
+                starts = starts - np.asarray([x_min, 0, 0], np.int64)
+            else:
+                vol = self._sweep_vols[token]
+            F_all_miss = os_mod.slice_segment_spectra(vol, starts, spec0, self.extent)
             self._ledger.transient(_nbytes(F_all_miss))
             self._store_spectra(
                 token, self._sweeps[token], keys_m, F_all_miss[:M]
@@ -889,7 +1017,7 @@ class PlanExecutor:
         vol = np.asarray(vol, np.float32)
         axis = self.sweep_axis if sweep_axis is None else int(sweep_axis)
         if axis != self.sweep_axis:
-            if not self._os_reuse:
+            if not (self._os_reuse and self.theta < 0):
                 raise ValueError(
                     "per-run sweep_axis override needs an overlap-save reuse plan"
                 )
@@ -909,9 +1037,18 @@ class PlanExecutor:
         self._ledger.begin_run()  # peak scoped to this sweep
         t0 = time.perf_counter()
         # the device upload is real per-volume work, so it is timed
-        sweep = self.begin_sweep(padded, sweep_axis=axis) if self._os_reuse else None
+        sweep = (
+            self.begin_sweep(padded, sweep_axis=axis)
+            if self._os_reuse and self.theta < 0 else None
+        )
         try:
-            n_batches, padded_patches = self._run_batched(padded, tiling, out, sweep)
+            if self.theta >= 0:
+                run_split = self._run_hetero if self.hetero else self._run_pipeline
+                n_batches, padded_patches = run_split(padded, tiling, out)
+            else:
+                n_batches, padded_patches = self._run_batched(
+                    padded, tiling, out, sweep
+                )
         finally:
             self.end_sweep(sweep)
         dt = time.perf_counter() - t0
@@ -937,9 +1074,12 @@ class PlanExecutor:
             "peak_device_bytes": self._ledger.peak,
             "predicted_peak_device_bytes": (
                 self.predict_memory(vol.shape[1:], sweep_axis=axis).device_bytes
-                if self._os_reuse else float("nan")
+                if self._os_reuse and self.theta < 0 else float("nan")
             ),
         }
+        if self.hetero:
+            # per-stage and hand-off counters beside their plan predictions
+            self.last_stats.update(self._hetero_stats)
         return out
 
     # -- memory model --------------------------------------------------------
@@ -1000,9 +1140,9 @@ class PlanExecutor:
         Reuse sweep (``sweep`` set): chunks capped at x-plane boundaries so
         every aligned interior patch's left neighbour completed in an
         EARLIER chunk; each chunk's walk starts from cached/computed
-        segment spectra of the sweep's resident volume.  Dense sweep: the
-        patches are cut from the padded host volume and walked as raw
-        input.
+        segment spectra of the sweep's resident volume (or, streaming, of
+        its staged slab).  Dense sweep: the patches are cut from the padded
+        host volume and walked as raw input.
         """
         S = self.batch
         specs = tiling.patches
@@ -1011,7 +1151,17 @@ class PlanExecutor:
             chunks = [[specs[i] for i in idxs] for idxs in chunk_patches(tiling, S)]
         else:
             chunks = [list(specs[i : i + S]) for i in range(0, len(specs), S)]
-        for chunk in chunks:
+        for ci, chunk in enumerate(chunks):
+            if sweep is not None and self.streaming:
+                # double-buffered staging: release planes the stream moved
+                # past, keep/stage the current plane, and start the NEXT
+                # plane's copy so it overlaps the current chunk's step
+                keep = {chunk[0].start[0]}
+                if ci + 1 < len(chunks):
+                    keep.add(chunks[ci + 1][0].start[0])
+                self._drop_slabs(sweep, keep)
+                for x0 in sorted(keep):
+                    self._slab(sweep, x0)
             if sweep is not None:
                 meta = [(sweep, tiling.segment_keys(s), s.start) for s in chunk]
                 ys = self.run_patch_batch(None, meta=meta)
@@ -1024,6 +1174,126 @@ class PlanExecutor:
                 self.write_core(out, tiling, spec, y)
             n_batches += 1
         return n_batches, 0
+
+    def _run_pipeline(self, padded, tiling, out):
+        """pipeline2: stream patch chunks through the two-stage loop.
+
+        One process holds both stages (the reference's ring over a pod
+        mesh axis with ``n_pods = 1``), so the stream is the chunks in
+        order and the padding is the last chunk's repeated patches.
+        """
+        S = self.batch
+        specs = list(tiling.patches)
+        T = math.ceil(len(specs) / S)
+        xs_all = np.empty((T, S, padded.shape[0]) + (tiling.extent,) * 3, np.float32)
+        chunk_specs: List[List] = []
+        for t in range(T):
+            chunk = specs[t * S : (t + 1) * S]
+            chunk_specs.append(chunk)
+            for j in range(S):
+                spec = chunk[min(j, len(chunk) - 1)]
+                xs_all[t, j] = extract_patch(padded, spec, tiling.extent)
+        stage0, stage1 = make_stage_fns(self.compiled, self.theta)
+        # the schedule stages the whole patch stream at once
+        self._ledger.transient(xs_all.nbytes)
+        ys = pipelined_apply(stage0, stage1, self._upload(xs_all))
+        pools = list(self.compiled.mpf_pools)
+        for t, chunk in enumerate(chunk_specs):
+            y = ys[t]
+            if pools:
+                y = recombine_fragments(y, pools, S)
+            y = y.cpu().numpy()
+            for j, spec in enumerate(chunk):
+                self.write_core(out, tiling, spec, y[j])
+        return T, T * S - tiling.n_patches
+
+    def _run_hetero(self, padded, tiling, out):
+        """hetero: the two stages on their devices, host RAM in between.
+
+        Stage 0 (layers [0, θ)) and stage 1 (layers [θ, L) + MPF
+        recombination) run on ``stage_devices``, each with its own copy of
+        the prepared states there; a stage on the CPU runs the plain
+        versions (``use_kernels`` resolves to them: a CPU stage is never
+        handed ``True``).  The split activation crosses as an explicit,
+        measured copy device 0 → pinned host buffer → device 1 (the
+        paper's §VII-C "host RAM is the shared medium"), its bytes counted.
+        Each chunk runs the two stages back to back, each timed to a
+        synchronize: measured wall time is t0 + t1 + xfer per chunk, where
+        the plan's steady state is max(t0, t1) + xfer.  The hand-off
+        *bytes* match ``Plan.xfer_bytes`` exactly (the per-patch size is
+        chunk-size independent).  The stage on the executor's device reads
+        the compiled states in place (the reference ``device_put``s and
+        ledgers a second copy), so the ledger adds nothing for them.
+        """
+        S = self.batch
+        specs = list(tiling.patches)
+        devs = self.stage_devices
+        pools = list(self.compiled.mpf_pools)
+        layers = self.compiled.layers
+        bounds = ((0, self.theta), (self.theta, len(layers)))
+        if self._hetero_states is None:
+            states = self.compiled.states
+            self._hetero_states = tuple(
+                states[lo:hi] if d == self.device else _states_to(states[lo:hi], d)
+                for d, (lo, hi) in zip(devs, bounds)
+            )
+        kernels = tuple(
+            self._use_kernels if d == self.device
+            else (False if self._use_kernels is False else None)
+            for d in devs
+        )
+        pinned = any(d.type == "cuda" for d in devs)
+
+        def stage(k, x):
+            lo, hi = bounds[k]
+            return apply_prepared_range(
+                self.net, layers[lo:hi], x, states=self._hetero_states[k],
+                use_kernels=kernels[k], fuse_pairs=self.fuse_pairs,
+            )
+
+        stage0_s = stage1_s = xfer_s = 0.0
+        xfer_bytes = 0.0
+        n_chunks = 0
+        for i in range(0, len(specs), S):
+            chunk = specs[i : i + S]  # ragged tail runs at true size
+            xs = np.stack([extract_patch(padded, s, tiling.extent) for s in chunk])
+            self._record_trace(("hetero", xs.shape))
+            t = time.perf_counter()
+            a = stage(0, torch.as_tensor(xs, device=devs[0]))
+            _sync(devs[0])
+            t2 = time.perf_counter()
+            stage0_s += t2 - t
+            # the hand-off: device 0 → pinned host RAM → device 1
+            a_host = torch.empty(a.shape, dtype=a.dtype, pin_memory=pinned)
+            a_host.copy_(a)
+            a1 = a_host.to(devs[1], non_blocking=True)
+            _sync(devs[1])
+            t3 = time.perf_counter()
+            xfer_s += t3 - t2
+            xfer_bytes += _nbytes(a_host)
+            y = stage(1, a1)
+            if pools:
+                y = recombine_fragments(y, pools, len(chunk))
+            _sync(devs[1])
+            stage1_s += time.perf_counter() - t3
+            self._ledger.transient(xs.nbytes + _nbytes(a) + _nbytes(y))
+            for spec, yy in zip(chunk, y.cpu().numpy()):
+                self.write_core(out, tiling, spec, yy)
+            n_chunks += 1
+
+        plan = self.plan
+        scale = tiling.n_patches / plan.batch  # plan counters are per batch
+        self._hetero_stats = {
+            "stage0_seconds": stage0_s,
+            "stage1_seconds": stage1_s,
+            "xfer_seconds": xfer_s,
+            "xfer_bytes": xfer_bytes,
+            "predicted_stage0_seconds": plan.stage_times[0] * scale,
+            "predicted_stage1_seconds": plan.stage_times[1] * scale,
+            "predicted_xfer_seconds": plan.xfer_seconds * scale,
+            "predicted_xfer_bytes": plan.xfer_bytes * scale,
+        }
+        return n_chunks, 0
 
 
 def tiled_apply(

@@ -253,13 +253,27 @@ def test_device_none_means_the_card(cases, monkeypatch):
 
 
 def test_unported_modes_raise(cases):
+    """What is still unported raises, naming its ROADMAP item: a sweep
+    axis other than the executor's (item 6f) and a tuned config other
+    than "auto"/None (item 9)."""
     case = cases["bench-net"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PlanExecutor(case.params, case.net, prims=case.prims, m=1,
-                     ram_budget=1e9, device="cpu")
     ex = PlanExecutor(case.params, case.net, prims=case.prims, m=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6f"):
         ex.run(case.vols[1], sweep_axis=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
         PlanExecutor(case.params, case.net, prims=case.prims, m=1,
-                     streaming=True, device="cpu")
+                     tuned="cpu__bench-net", device="cpu")
+
+
+def test_streaming_executor_constructs(cases):
+    """``ram_budget`` turns host-staged streaming on, ``streaming`` forces
+    either mode; a streaming sweep serves the request exactly."""
+    case = cases["bench-net"]
+    kw = dict(prims=case.prims, m=1, device="cpu")
+    assert PlanExecutor(case.params, case.net, ram_budget=1e9, **kw).streaming
+    assert not PlanExecutor(case.params, case.net, ram_budget=1e9,
+                            streaming=False, **kw).streaming
+    ex = PlanExecutor(case.params, case.net, streaming=True, **kw)
+    dense = PlanExecutor(case.params, case.net, **kw)
+    assert ex.streaming and ex.ram_budget is None and not dense.streaming
+    assert np.array_equal(ex.run(case.vols[1]), dense.run(case.vols[1]))
