@@ -38,6 +38,21 @@ Phases, in order; any failure makes the exit code non-zero:
    every scope released, each ledger peak printed beside
    ``max_memory_allocated``; then the three requests are served through a
    streaming ``VolumeEngine`` and held against the dense oracle.
+   Then other sweep axes and the sharded fleet on that volume V: one reuse
+   executor sweeps V on axis 1 and on axis 2 (the per-run override; each
+   axis's states are built on first use), counters equal to
+   ``predict_counts``, output against the oracle, and axis 2 bitwise equal
+   to a natively built ``sweep_axis=2`` executor; one ``VolumeEngine``
+   drains V on axes 0, 1 and 2 at batch 3 (so a tick mixes requests),
+   twice, every output within the reference's mixed-drain tolerance of
+   the oracle and the second drain bitwise equal to the first; a solo
+   streaming engine drains V on axes 0 and 1; ``ShardedVolumeEngine`` at
+   N = 2 and 3 and at N = 2 on axis 1, each bitwise equal to the solo
+   drain, halo bytes as predicted; last, N = 3 with worker 1 down from
+   tick 5 (``KillWorker``): evicted, its shard replayed, still bitwise.
+   Each run prints its time, vox/s, halo bytes, export and import seconds,
+   each worker's ledger peak beside ``max_memory_allocated`` and its
+   launch counts.
 4. The dense path: the planner's own primitives for n337 on an H100
    (``plan_single``: direct, mpf, overlap_save, mpf, fft_cached, mpf,
    fft_cached ×3, direct), cut only in patch size (m=8, batch 2).  First the
@@ -570,7 +585,8 @@ def _released(ex) -> bool:
 def run_streamed(smoke, device, net, plan, params, vols, dense, launches, seed=0):
     """Phase 3, streamed: an offline sweep dense, then host-staged under a
     ``ram_budget``; then the three requests served by a streaming engine.
-    Returns the serving stats of each run."""
+    Returns the serving stats of each run, the swept volume and its dense
+    oracle."""
     import numpy as np
     import torch
 
@@ -647,8 +663,8 @@ def run_streamed(smoke, device, net, plan, params, vols, dense, launches, seed=0
         del ex
         if device.type == "cuda":
             torch.cuda.empty_cache()
-    want = torch.from_numpy(outs["dense"])
-    ok, err = _close(want, dense_oracle(net, params, vol, device), **E2E)
+    oracle = dense_oracle(net, params, vol, device)
+    ok, err = _close(torch.from_numpy(outs["dense"]), oracle, **E2E)
     smoke.check(ok, f"sweep dense vs dense oracle: max_abs_err {err:.3e}")
     print(f"streamed serve: ram_budget {serve_budget:.0f} B", flush=True)
     engine, counts, stats["serve streamed"] = serve(
@@ -661,6 +677,251 @@ def run_streamed(smoke, device, net, plan, params, vols, dense, launches, seed=0
     del engine
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    return stats, vol, oracle
+
+
+class KillWorker:
+    """Fault hooks of a sharded fleet: worker ``wid`` is down (runs no
+    chunk, sends no heartbeat) from tick ``at_tick`` on; every step takes
+    one unit of the fleet's synthetic clock."""
+
+    def __init__(self, wid: int, at_tick: int):
+        self.wid, self.at_tick = wid, at_tick
+
+    def down(self, wid: int, tick: int) -> bool:
+        return wid == self.wid and tick >= self.at_tick
+
+    def step_time(self, wid: int, tick: int) -> float:
+        return 1.0
+
+
+def _time_handoffs(fleet, device):
+    """Wrap every worker's ``export_handoff`` and ``import_handoff`` so each
+    call's seconds, ended by a synchronize, add up in the returned dict.
+    The wrappers close over their executors (a reference cycle: free the
+    fleet with ``_free``)."""
+    acc = {"export": 0.0, "import": 0.0}
+
+    def timed(fn, key):
+        def call(*args, **kwargs):
+            _sync(device)
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            _sync(device)
+            acc[key] += time.perf_counter() - t
+            return out
+        return call
+
+    for worker in fleet.workers:
+        for key in acc:
+            name = f"{key}_handoff"
+            setattr(worker.executor, name, timed(getattr(worker.executor, name), key))
+    return acc
+
+
+def _reached(smoke, label, counts, launches=None):
+    for name in REACHED[True]:
+        smoke.check(counts[name] > 0, f"{label}: {name} launched {counts[name]} times")
+    if launches is not None:
+        for name in launches:
+            launches[name] += counts[name]
+
+
+def _drain(engine, reqs, device):
+    """Submit ``reqs``, drain the engine with the launch counts zeroed just
+    before and the allocator's peak reset; returns (seconds, counts, peak)."""
+    import torch
+
+    from repro_torch import kernels
+
+    for r in reqs:
+        engine.submit(r)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    _sync(device)
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    engine.run_until_drained()
+    _sync(device)
+    dt = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+    return dt, kernels.launch_counts(), peak
+
+
+def _free(device):
+    import gc
+
+    import torch
+
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+# a tick mixes requests only when one drains mid-batch: at batch 3 the
+# volume's x-planes (4 patches each) end on a 1-patch chunk, which the next
+# request's first two patches join
+MIXED_BATCH = 3
+# the reference's tolerance for a mixed-axis drain (tests/test_axis_sweeps.py)
+MIXED_TOL = dict(atol=2e-3, rtol=0.0)
+
+
+def run_axes_fleet(smoke, device, net, plan, params, vol, want, launches):
+    """Phase 3, sweep axes and the sharded fleet, on the streamed volume V
+    (``want`` is its dense oracle): the per-run axis override, a mixed-axis
+    drain, the fleet at N = 2 and 3 and on the y axis, a fault drill.
+    Returns the stats of each run."""
+    import numpy as np
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.serving import ShardedVolumeEngine, VolumeEngine, VolumeRequest
+    from repro_torch.volume import PlanExecutor
+
+    shape = tuple(vol.shape[1:])
+    vox = float(math.prod(want.shape[1:]))
+    stats = {}
+
+    # 1. the per-run override on one reuse executor, then a native axis-2 one
+    ex = PlanExecutor(params, net, plan, fuse_os=True, device=device)
+    outs = {}
+    for axis in (1, 2):
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        _sync(device)
+        kernels.reset_launch_counts()
+        outs[axis] = ex.run(vol, sweep_axis=axis)
+        _sync(device)
+        counts = kernels.launch_counts()
+        s = ex.last_stats
+        alloc = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+        c = ex.predict_counts(shape, sweep_axis=axis)
+        got = (s["os_seg_fft"], s["os_seg_hits"], s["os_mad_segments"],
+               s["deep_strip_patches"], s["deep_full_patches"])
+        label = f"axis override {axis}"
+        print(f"{label}: volume {shape} swept on axis {axis} by an axis-0 executor, "
+              f"{s['patches']} patches, {s['seconds']:.3f} s = {s['measured_voxps']:.1f} "
+              f"vox/s (the axis's lazy state build included); peak_device_bytes "
+              f"(ledger) {s['peak_device_bytes']:.0f}, predict_memory "
+              f"{ex.predict_memory(shape, sweep_axis=axis).device_bytes:.0f}, "
+              f"max_memory_allocated {alloc}; launches {json.dumps(counts)}", flush=True)
+        stats[label] = dict(seconds=s["seconds"], voxps=s["measured_voxps"],
+                            ledger_peak=s["peak_device_bytes"], max_memory_allocated=alloc)
+        smoke.check(got == (c.seg_fft, c.seg_hits, c.mad_segments, c.strip_patches,
+                            c.full_patches), f"{label}: counters {got} == predict_counts")
+        ok, err = _close(torch.from_numpy(outs[axis]), want, **E2E)
+        smoke.check(ok, f"{label}: output vs dense oracle: max_abs_err {err:.3e}")
+        _reached(smoke, label, counts, launches)
+    smoke.check(sorted(ex._axis_states) == [0, 1, 2] and not ex._sweep_axes,
+                "axis override: states built for axes 0, 1, 2; every scope released")
+    del ex
+    _free(device)
+    native = PlanExecutor(params, net, plan, fuse_os=True, sweep_axis=2, device=device)
+    out = native.run(vol)
+    s = native.last_stats
+    print(f"axis native 2: a sweep_axis=2 executor, {s['seconds']:.3f} s = "
+          f"{s['measured_voxps']:.1f} vox/s; peak_device_bytes (ledger) "
+          f"{s['peak_device_bytes']:.0f} (predicted {s['predicted_peak_device_bytes']:.0f})",
+          flush=True)
+    stats["axis native 2"] = dict(seconds=s["seconds"], voxps=s["measured_voxps"])
+    smoke.check(np.array_equal(out, outs[2]),
+                "axis override 2: bitwise equal to a natively built sweep_axis=2 executor")
+    del native, outs
+    _free(device)
+
+    # 2. one engine, V on axes 0, 1 and 2 in one drain, twice
+    mixed = []
+    for rep in range(2):
+        eng = VolumeEngine(params, net, plan, batch=MIXED_BATCH, fuse_os=True,
+                           device=device)
+        reqs = [VolumeRequest(a, vol, sweep_axis=a) for a in (0, 1, 2)]
+        dt, counts, alloc = _drain(eng, reqs, device)
+        ex = eng.executor
+        mixed.append([r.out for r in reqs])
+        label = f"mixed axes drain {rep + 1}"
+        print(f"{label}: V on axes 0, 1, 2 at batch {MIXED_BATCH}, {eng.ticks} ticks, "
+              f"{ex.last_stats['mixed_ticks']} mixed; {3 * vox:.0f} voxels in {dt:.3f} s "
+              f"= {3 * vox / dt:.1f} vox/s; peak_device_bytes (ledger) "
+              f"{ex.last_stats['peak_device_bytes']:.0f}, max_memory_allocated {alloc}; "
+              f"launches {json.dumps(counts)}", flush=True)
+        stats[label] = dict(seconds=dt, voxps=3 * vox / dt, ticks=eng.ticks,
+                            ledger_peak=ex.last_stats["peak_device_bytes"],
+                            max_memory_allocated=alloc)
+        smoke.check(ex.last_stats["mixed_ticks"] >= 1, f"{label}: a tick mixed requests")
+        smoke.check(all(r.done for r in reqs) and _released(ex) and not ex._sweep_axes,
+                    f"{label}: every request done, every scope and axis released")
+        for r in reqs:
+            ok, err = _close(torch.from_numpy(r.out), want, **MIXED_TOL)
+            smoke.check(ok, f"{label}: axis {r.sweep_axis} vs dense oracle: max_abs_err "
+                            f"{err:.3e} (atol {MIXED_TOL['atol']}, rtol 0)")
+        _reached(smoke, label, counts, launches if rep == 0 else None)
+        del eng, ex, reqs
+        _free(device)
+    smoke.check(all(np.array_equal(a, b) for a, b in zip(*mixed)),
+                "mixed axes: a second identical drain is bitwise equal")
+    del mixed
+
+    # 3-4. the fleet against a solo single-device streaming engine
+    solo = VolumeEngine(params, net, plan, fuse_os=True, streaming=True, device=device)
+    single = {}
+    for axis in (0, 1):
+        req = VolumeRequest(0, vol, sweep_axis=axis)
+        dt, counts, alloc = _drain(solo, [req], device)
+        single[axis] = (req.out, dt)
+        label = f"fleet single axis {axis}"
+        print(f"{label}: one streaming VolumeEngine, {dt:.3f} s = {vox / dt:.1f} vox/s; "
+              f"peak_device_bytes (ledger) {solo.executor.last_stats['peak_device_bytes']:.0f}"
+              f", max_memory_allocated {alloc}; launches {json.dumps(counts)}", flush=True)
+        stats[label] = dict(seconds=dt, voxps=vox / dt, max_memory_allocated=alloc)
+        ok, err = _close(torch.from_numpy(req.out), want, **E2E)
+        smoke.check(ok, f"{label}: output vs dense oracle: max_abs_err {err:.3e}")
+        _reached(smoke, label, counts, launches)
+    del solo
+    _free(device)
+    runs = (("fleet N=2", 2, 0, None), ("fleet N=3", 3, 0, None),
+            ("fleet N=2 axis 1", 2, 1, None),
+            ("fault drill N=3", 3, 0, KillWorker(1, at_tick=5)))
+    for label, n, axis, hooks in runs:
+        fleet = ShardedVolumeEngine(params, net, plan, n_workers=n, fuse_os=True,
+                                    sweep_axis=axis, fault_hooks=hooks, device=device)
+        handoff = _time_handoffs(fleet, device)
+        req = VolumeRequest(0, vol)
+        dt, counts, alloc = _drain(fleet, [req], device)
+        st = fleet.last_stats
+        ref_out, ref_dt = single[axis]
+        peaks = [w.executor._ledger.peak for w in fleet.workers]
+        print(f"{label}: {st['ticks']} ticks, {dt:.3f} s = {vox / dt:.1f} vox/s (single "
+              f"device {ref_dt:.3f} s = {vox / ref_dt:.1f}); halo_bytes_in "
+              f"{st['halo_bytes_in']} (predicted {st['predicted_halo_bytes_in']}), "
+              f"exchanged {st['halo_exchange_bytes']} B, export {handoff['export']:.4f} s, "
+              f"import {handoff['import']:.4f} s; redispatches {st['redispatches']}, "
+              f"duplicates_dropped {st['duplicates_dropped']}; worker ledger peaks "
+              f"{[round(p) for p in peaks]}, sum {sum(peaks):.0f}, max_memory_allocated "
+              f"{alloc}; launches {json.dumps(counts)}", flush=True)
+        stats[label] = dict(seconds=dt, voxps=vox / dt, ticks=st["ticks"],
+                            halo_exchange_bytes=st["halo_exchange_bytes"],
+                            export_seconds=handoff["export"],
+                            import_seconds=handoff["import"],
+                            worker_ledger_peaks=peaks, max_memory_allocated=alloc)
+        smoke.check(req.done and np.array_equal(req.out, ref_out),
+                    f"{label}: bitwise equal to the single-device engine")
+        smoke.check(st["halo_exchange_bytes"] > 0, f"{label}: the boundary handed off")
+        if hooks is None:
+            smoke.check(st["halo_bytes_in"] == st["predicted_halo_bytes_in"],
+                        f"{label}: halo_bytes_in == predicted_halo_bytes_in")
+            smoke.check(st["redispatches"] == st["duplicates_dropped"] == 0,
+                        f"{label}: no redispatch, no duplicate")
+        else:
+            pred = st["predicted_halo_bytes_in"]
+            smoke.check(st["redispatches"] >= 1 and st["duplicates_dropped"] >= 1,
+                        f"{label}: worker {hooks.wid} evicted, its shard replayed")
+            # the replay imports worker 1's start package once more
+            smoke.check(st["halo_exchange_bytes"] == sum(pred) + pred[hooks.wid],
+                        f"{label}: exchanged bytes == predicted + one more delivery "
+                        f"of worker {hooks.wid}'s boundary")
+        _reached(smoke, label, counts, launches)
+        del fleet, req
+        _free(device)
     return stats
 
 
@@ -1531,12 +1792,18 @@ def run(device, net, m: int, batch: int, hw, seed: int = 0, *, dense_m: int,
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t = time.perf_counter()
-    serving.update(run_streamed(smoke, device, net, plan, params, vols, dense, launches,
-                                seed))
+    streamed, vol, want = run_streamed(smoke, device, net, plan, params, vols, dense,
+                                       launches, seed)
+    serving.update(streamed)
     print(f"streamed phase: {time.perf_counter() - t:.1f} s", flush=True)
-    del dense
+    t = time.perf_counter()
+    serving.update(run_axes_fleet(smoke, device, net, plan, params, vol, want, launches))
+    print(f"axes and fleet phase: {time.perf_counter() - t:.1f} s", flush=True)
+    del dense, vol, want
+    _free(device)
     if device.type == "cuda":
-        torch.cuda.empty_cache()
+        print(f"allocated after the reuse phases: {torch.cuda.memory_allocated(device)} B",
+              flush=True)
 
     results.update(run_dense(smoke, device, net, params, hw, dense_m, batch,
                              launches, serving, gen, prims=dense_prims))

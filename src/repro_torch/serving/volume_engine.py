@@ -48,12 +48,17 @@ are executor-level optimizations used by ``PlanExecutor.run`` for
 offline sweeps, not by the tick loop, which serves every plan through
 the one fused step.
 
+Sweep axes: a request may sweep any volume axis (``sweep_axis``; an
+axis other than the executor's needs an overlap-save reuse plan).  Its
+scope records the axis, the executor builds that axis's prepared states
+on first use, and a tick mixing axes walks one stack per axis
+(``last_stats["mixed_ticks"]`` counts the ticks that batch more than one
+request).
+
 Port notes: ``device=None`` means the card (the executor raises without
 one); ``use_kernels`` is the port's kernel tri-state.  Plans without
 overlap-save reuse tick through the executor's dense walk over patches
-cut from the request's host volume.  Per-request sweep axes other than
-the executor's raise ``NotImplementedError`` in the executor until their
-slice lands (ROADMAP.md Queue 1, item 6f).
+cut from the request's host volume.
 """
 
 from __future__ import annotations
@@ -224,6 +229,7 @@ class VolumeEngine:
         self.active: List[VolumeRequest] = []
         self.finished: List[VolumeRequest] = []
         self.ticks = 0
+        self.mixed_ticks = 0  # ticks batching patches of more than one request
         self._seq = 0
 
     # -- admission ----------------------------------------------------------
@@ -414,6 +420,8 @@ class VolumeEngine:
             self.active = [r for r in self.active if id(r) not in gone]
             self.finished.extend(completed)
         self.ticks += 1
+        self.mixed_ticks += len({id(req) for req, _ in items}) > 1
+        ex.last_stats["mixed_ticks"] = self.mixed_ticks
         ex.last_stats["retraces"] = len(ex._trace_keys)
         # lifetime peak across all sweeps served so far (the shared budget
         # the scheduler defends)

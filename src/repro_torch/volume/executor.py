@@ -68,9 +68,22 @@ PyTorch runs eagerly, so nothing is traced; the executor still records
 the distinct step keys the reference's jit would specialize on, so
 ``last_stats["retraces"]`` keeps its meaning.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): per-request sweep axes other than the executor's, the boundary
-handoff of the sharded fleet, and tuned configs.
+Any sweep axis (``sweep_axis``, per executor or per run): every sweep
+coordinate lives in the tiler's working frame, and the conv weights are
+permuted into it (``_permute_conv_params``).  States belong to an axis,
+not to a scope: the executor's own axis is compiled up front, any other
+axis lazily on its first scope (``_states_for_axis``), and scopes on one
+axis share them.  A serving tick that mixes axes walks one stack per
+axis (``_run_os_batch_mixed``).
+
+Shard boundaries of the sharded fleet: ``export_handoff`` stages a
+scope's cache entries at or past a plane to host tensors (a
+``distributed.collectives.HaloPackage``), ``import_handoff`` files them
+into another scope, and ``handoff_entry_nbytes`` sizes one entry of each
+kind for the fleet's exact byte prediction.
+
+Not ported yet (raises ``NotImplementedError`` naming its ROADMAP.md
+item): tuned configs.
 """
 
 from __future__ import annotations
@@ -263,6 +276,8 @@ class PlanExecutor:
             None if p is None else (p[0].to(self.device), p[1].to(self.device))
             for p in params
         ]
+        # the volume-frame params: every other axis's states permute them
+        self._orig_params = params
         self.params = _permute_conv_params(params, net, sweep_perm(self.sweep_axis))
         self.net = net
         self.plan = plan
@@ -306,14 +321,9 @@ class PlanExecutor:
             raise AssertionError((self.extent, self.core, self.fov))
         self.out_channels = [l for l in net.layers if l.kind == "conv"][-1].out_channels
 
-        self.compiled: CompiledPlan = compile_plan(
-            self.params, net, prims=self.prims, n_in=self.n_in,
-            use_kernels=use_kernels, fuse_pairs=fuse_pairs,
-            fprime_chunk=fprime_chunk, plan=plan,
-            overlap_seg=self.core if self.prims[0] == "overlap_save" else None,
-        )
-        self.fuse_pairs = self.compiled.fuse_pairs
         self._fprime_chunk = fprime_chunk
+        self.compiled: CompiledPlan = self._compile(self.params, fuse_pairs)
+        self.fuse_pairs = self.compiled.fuse_pairs
         self._seen_batch_sizes: set = set()
         self.last_stats: Dict[str, float] = {}
 
@@ -371,7 +381,14 @@ class PlanExecutor:
             ]
         else:
             self._q_strip = None
+        # every scope records its axis; the axis's prepared states are
+        # built once (the executor's own axis here, others lazily)
         self._sweep_axes: Dict[int, int] = {}
+        self._axis_states: Dict[int, Tuple[Any, Any]] = {
+            self.sweep_axis: (
+                self.compiled.states, getattr(self, "_strip_states", None)
+            )
+        }
         # prepared states (weights, cached kernel spectra at full AND strip
         # shapes) are resident for the executor's lifetime
         self._ledger = _DeviceLedger()
@@ -426,22 +443,51 @@ class PlanExecutor:
             deep_reuse=self.deep_reuse, strip_segments=self._q_strip,
         )
 
-    def _states_for_axis(self, axis: int):
-        """Prepared state lists ``(states, strip_states)`` for one axis."""
-        if axis != self.sweep_axis:
-            raise _not_ported(
-                "a sweep axis other than the executor's", "Queue 1 item 6f"
-            )
-        return self.compiled.states, getattr(self, "_strip_states", None)
+    def _compile(self, params, fuse_pairs) -> CompiledPlan:
+        """``compile_plan`` of this executor's plan over ``params`` (one
+        axis's working-frame weights)."""
+        return compile_plan(
+            params, self.net, prims=self.prims, n_in=self.n_in,
+            use_kernels=self._use_kernels, fuse_pairs=fuse_pairs,
+            fprime_chunk=self._fprime_chunk, plan=self.plan,
+            overlap_seg=self.core if self.prims[0] == "overlap_save" else None,
+        )
 
-    def _build_strip_plan(self):
+    def _states_for_axis(self, axis: int):
+        """Prepared state lists ``(states, strip_states)`` for one axis.
+
+        Patches and kernels are cubic, so every working frame has the same
+        shapes and shares the layer metadata; only the numbers differ: the
+        weights permuted into that axis's frame and their cached kernel
+        spectra.  Another axis's states are built on first use through the
+        same ``_compile`` and strip setup as the executor's own, and
+        ledgered like them.
+        """
+        got = self._axis_states.get(axis)
+        if got is None:
+            p_ax = _permute_conv_params(self._orig_params, self.net, sweep_perm(axis))
+            compiled = self._compile(p_ax, self.fuse_pairs)
+            strip_states = None
+            if self.deep_reuse:
+                layers, _ = self._build_strip_plan(p_ax)
+                strip_states = [pl.state if pl is not None else None for pl in layers]
+            got = (compiled.states, strip_states)
+            self._axis_states[axis] = got
+            self._ledger.alloc(_tree_nbytes(got[0], strip_states or []))
+        return got
+
+    def _build_strip_plan(self, params=None):
         """One-time setup of the interior-patch strip walk (layers >= 1).
 
         Binds each layer below the input to the strip extent an interior
         patch runs: ``new_x + size - 1`` sweep-axis columns at the full
         walk's cross extents.  Returns ``(layers, info)`` with
         ``info[i] = (halo columns, fragment batch multiplier)``.
+        ``params`` defaults to the executor's working-frame params; another
+        axis's permuted params build that axis's strip states.
         """
+        if params is None:
+            params = self.params
         n = self.n_in
         P_cur, frag = 1, 1
         layers: List[Optional[PreparedLayer]] = [None] * len(self.net.layers)
@@ -454,7 +500,7 @@ class PlanExecutor:
                 if w_in > n:
                     raise AssertionError((i, w_in, n))
                 if layer.kind == "conv":
-                    w, b = self.params[i]
+                    w, b = params[i]
                     layers[i] = conv_primitive(self.prims[i]).setup(
                         w, b, (w_in, n, n), index=i
                     )
@@ -482,9 +528,11 @@ class PlanExecutor:
     ) -> int:
         """Open a fresh spectra-reuse scope (one volume sweep / request).
 
-        Segment keys are absolute coordinates within one padded volume, so
-        spectra never leak across requests.  ``padded`` must already be in
-        the sweep axis's working frame.  The volume is extended along
+        Segment keys are absolute coordinates within one padded volume
+        swept on one axis, so spectra never leak across requests, and
+        scopes on different axes batch in one tick without key collisions.
+        ``padded`` must already be in ``sweep_axis``'s working frame (the
+        default is the executor's axis).  The volume is extended along
         working axis 0 so the aligned grid's tail segments stay in bounds,
         then either uploaded to the device once (dense mode) or kept in
         pinned host memory (streaming mode), from which ``_slab`` stages
@@ -492,10 +540,6 @@ class PlanExecutor:
         not the volume.
         """
         axis = self.sweep_axis if sweep_axis is None else int(sweep_axis)
-        if axis != self.sweep_axis:
-            raise _not_ported(
-                "a sweep axis other than the executor's", "Queue 1 item 6f"
-            )
         spec0 = self.compiled.layers[0].os_spec
         max_x0 = max(0, padded.shape[1] - self.extent)
         short = max(0, max_x0 + spec0.span - padded.shape[1])
@@ -576,6 +620,89 @@ class PlanExecutor:
             self._drop_slabs(
                 token, {x for x in self._sweep_slabs.get(token, {}) if x >= x_lo}
             )
+
+    # -- shard boundary handoff (sharded serving fleet) ----------------------
+
+    def export_handoff(self, token: int, x_lo: int):
+        """Stage this scope's boundary caches out to host.
+
+        Returns a ``distributed.collectives.HaloPackage`` of every segment-
+        spectrum row and activation-halo entry whose absolute-x key is
+        >= ``x_lo``: exactly what a single-device sweep still holds when its
+        next chunk starts at plane ``x_lo`` (everything left of it is
+        evicted there).  Each row and entry is copied to a host tensor, so
+        the package crosses workers and no view keeps a device parent
+        alive; an import followed by an export gives back the same bits.
+        """
+        from ..distributed.collectives import HaloPackage
+
+        spectra = {
+            key: ref.parent[ref.idx].to("cpu", copy=True)
+            for key, ref in self._sweeps.get(token, {}).items()
+            if key[0] >= x_lo and isinstance(ref, _SpectrumRef)
+        }
+        halos = {
+            key: tuple(h.to("cpu", copy=True) for h in entry)
+            for key, entry in self._halo_caches.get(token, {}).items()
+            if key[0] >= x_lo
+        }
+        return HaloPackage(x_lo=x_lo, spectra=spectra, halos=halos)
+
+    def import_handoff(self, token: int, pkg) -> None:
+        """File a predecessor shard's boundary package into this scope.
+
+        Spectrum rows are grouped by absolute segment x and uploaded as one
+        parent per x (the split ``_store_spectra`` keeps, so the per-key
+        eviction sweep still frees whole buffers); halo entries upload per
+        key.  Both are ledgered, as a single-device sweep holds them at
+        this boundary.
+        """
+        if pkg is None or pkg.is_empty():
+            return
+        cache = self._sweeps.setdefault(token, {})
+        by_x: Dict[int, List] = {}
+        for key in sorted(pkg.spectra):
+            by_x.setdefault(key[0], []).append(key)
+        for _x, keys in sorted(by_x.items()):
+            parent = torch.stack([pkg.spectra[k] for k in keys]).to(self.device)
+            share = _nbytes(parent) / len(keys)
+            self._ledger.alloc(_nbytes(parent))
+            for i, key in enumerate(keys):
+                cache[key] = _SpectrumRef(parent, i)
+                self._key_bytes[(token, key)] = share
+        halo_cache = self._halo_caches.setdefault(token, {})
+        for key in sorted(pkg.halos):
+            entry = [h.to(self.device, copy=True) for h in pkg.halos[key]]
+            halo_cache[key] = entry
+            self._ledger.alloc(sum(_nbytes(h) for h in entry))
+
+    def handoff_entry_nbytes(self) -> Tuple[int, int]:
+        """``(seg_row_bytes, halo_entry_bytes)`` of a boundary package.
+
+        One layer-0 segment-spectrum row is the complex64 rfftn of an
+        (f_in, *fft_shape) block; one activation-halo entry stacks, per
+        layer below the input, the (frag, C_in, size-1, n, n) float32
+        capture of the strip walk.  Every key's entry has the same size, so
+        ``tiler.predict_shard_handoff``'s counts times these give the exact
+        exchanged bytes.
+        """
+        if not self._os_reuse:
+            raise ValueError("handoff accounting needs an overlap-save plan")
+        fa, fb, fc = self.compiled.layers[0].os_spec.fft_shape
+        seg_row = self.net.in_channels * fa * fb * (fc // 2 + 1) * 8
+        halo_entry = 0
+        if self.deep_reuse:
+            c, n = self.net.in_channels, self.n_in
+            for i, layer in enumerate(self.net.layers):
+                if i > 0:
+                    h, frag = self._strip_info[i]
+                    halo_entry += frag * c * h * n * n * 4
+                if layer.kind == "conv":
+                    c = layer.out_channels
+                    n = n - layer.size + 1
+                else:
+                    n = n // layer.size
+        return int(seg_row), int(halo_entry)
 
     # -- the walks -------------------------------------------------------------
 
@@ -945,23 +1072,32 @@ class PlanExecutor:
             self._store_spectra(
                 token, self._sweeps[token], keys_m, F_all_miss[:M]
             )
-        # every open scope sweeps the executor's axis (begin_sweep enforces
-        # it), so the whole tick walks as one stack
-        flat = []
+        # requests on different axes walk different states: one stacked
+        # walk per axis group, outputs put back in meta order
+        by_axis: Dict[int, List[int]] = {}
         for i, (token, _, _) in enumerate(meta):
-            cache = self._sweeps[token]
-            for key, F in slots[i]:
-                if isinstance(F, _PendingMiss):
-                    F = cache[key]  # _store_spectra filed the real ref
-                flat.append(F.parent[F.idx])
-        F_all = torch.stack(flat).reshape(
-            (len(meta), spec0.n_segments) + tuple(flat[0].shape)
-        )
-        self._record_trace(("oswalk", tuple(F_all.shape)))
-        states, _ = self._states_for_axis(self.sweep_axis)
-        out, _ = self._os_walk(states, F_all)
-        self._ledger.transient(_nbytes(F_all) + _nbytes(out))
-        return out.cpu().numpy()
+            by_axis.setdefault(self._sweep_axes.get(token, self.sweep_axis), []).append(i)
+        outs: List[Optional[np.ndarray]] = [None] * len(meta)
+        for axis in sorted(by_axis):
+            rows = by_axis[axis]
+            flat = []
+            for i in rows:
+                cache = self._sweeps[meta[i][0]]
+                for key, F in slots[i]:
+                    if isinstance(F, _PendingMiss):
+                        F = cache[key]  # _store_spectra filed the real ref
+                    flat.append(F.parent[F.idx])
+            F_all = torch.stack(flat).reshape(
+                (len(rows), spec0.n_segments) + tuple(flat[0].shape)
+            )
+            self._record_trace(("oswalk", tuple(F_all.shape)))
+            states, _ = self._states_for_axis(axis)
+            out, _ = self._os_walk(states, F_all)
+            self._ledger.transient(_nbytes(F_all) + _nbytes(out))
+            out = out.cpu().numpy()
+            for j, i in enumerate(rows):
+                outs[i] = out[j]
+        return np.stack(outs)
 
     def padded_batch_size(self, n: int) -> int:
         """Batch size to run for ``n`` ready patches: ``n`` itself when it is
@@ -1013,16 +1149,15 @@ class PlanExecutor:
         """Sweep (f, X, Y, Z) -> dense (out_ch, X-FOV+1, Y-FOV+1, Z-FOV+1).
 
         Output is in the VOLUME frame, whatever the sweep axis.
+        ``sweep_axis`` overrides the executor's axis for this run (overlap-
+        save reuse plans only: the other paths run on the executor's own
+        axis's compiled states).
         """
         vol = np.asarray(vol, np.float32)
         axis = self.sweep_axis if sweep_axis is None else int(sweep_axis)
-        if axis != self.sweep_axis:
-            if not (self._os_reuse and self.theta < 0):
-                raise ValueError(
-                    "per-run sweep_axis override needs an overlap-save reuse plan"
-                )
-            raise _not_ported(
-                "a sweep axis other than the executor's", "Queue 1 item 6f"
+        if axis != self.sweep_axis and not (self._os_reuse and self.theta < 0):
+            raise ValueError(
+                "per-run sweep_axis override needs an overlap-save reuse plan"
             )
         tiling = self.tiling_for(vol.shape[1:], sweep_axis=axis)
         padded = pad_volume(vol, tiling)  # working frame (sweep axis first)

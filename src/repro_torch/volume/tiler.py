@@ -72,24 +72,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..configs.base import ConvNetConfig
-
-
-def elastic_shard_sizes(
-    global_batch: int, n_workers: int, weights: Optional[List[float]] = None
-) -> List[int]:
-    """Split ``global_batch`` over workers proportionally to ``weights``
-    (1/step_time).  Sizes sum exactly to ``global_batch``.  The port's own
-    copy of ``distributed.fault_tolerance.elastic_shard_sizes``."""
-    if weights is None:
-        weights = [1.0] * n_workers
-    w = np.asarray(weights, dtype=np.float64)
-    w = w / w.sum()
-    sizes = np.floor(w * global_batch).astype(int)
-    rem = global_batch - sizes.sum()
-    order = np.argsort(-(w * global_batch - sizes))
-    for i in range(rem):
-        sizes[order[i % n_workers]] += 1
-    return sizes.tolist()
+from ..distributed.fault_tolerance import elastic_shard_sizes
 
 
 @dataclass(frozen=True)

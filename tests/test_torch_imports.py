@@ -29,6 +29,8 @@ MODULES = (
     "repro_torch.kernels.decode_attn",
     "repro_torch.serving.engine",
     "repro_torch.launch.serve",
+    "repro_torch.distributed",
+    "repro_torch.serving.sharded_engine",
 )
 
 

@@ -253,13 +253,17 @@ def test_device_none_means_the_card(cases, monkeypatch):
 
 
 def test_unported_modes_raise(cases):
-    """What is still unported raises, naming its ROADMAP item: a sweep
-    axis other than the executor's (item 6f) and a tuned config other
-    than "auto"/None (item 9)."""
+    """What is still unported raises, naming its ROADMAP item: a tuned
+    config other than "auto"/None (item 9).  A sweep axis other than the
+    executor's (item 6f) is ported: the per-run override runs and matches
+    the dense oracle."""
     case = cases["bench-net"]
     ex = PlanExecutor(case.params, case.net, prims=case.prims, m=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 6f"):
-        ex.run(case.vols[1], sweep_axis=1)
+    vol = case.vols[1]
+    out = ex.run(vol, sweep_axis=1)
+    want = convnet.apply_dense_reference(case.params, case.net, torch.from_numpy(vol)[None])
+    np.testing.assert_allclose(out, want[0].numpy(), **TOL)
+    assert sorted(ex._axis_states) == [0, 1] and not ex._sweep_axes
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
         PlanExecutor(case.params, case.net, prims=case.prims, m=1,
                      tuned="cpu__bench-net", device="cpu")
