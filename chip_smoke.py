@@ -52,7 +52,18 @@ Phases, in order; any failure makes the exit code non-zero:
    tick 5 (``KillWorker``): evicted, its shard replayed, still bitwise.
    Each run prints its time, vox/s, halo bytes, export and import seconds,
    each worker's ledger peak beside ``max_memory_allocated`` and its
-   launch counts.
+   launch counts.  Every phase before this one passes ``tuned=None``, so
+   it runs the knobs it names whatever config is committed.
+   Then ``tuned``: (a) the committed config for (this card, n337) must
+   load, (b) the three requests served on the deployed plan under
+   ``tuned="auto"`` with no explicit knob (``fused_tuned``: the plan's m
+   and batch, the config's knobs), held against the oracle, vox/s beside
+   the untuned ``fuse_os`` serve and ``tuned_provenance()``; (c) a
+   plan-less ``VolumeEngine`` whose m and batch come from the config
+   serves three requests shaped for its core, against their oracles,
+   with vox/s, ledger peak and ``max_memory_allocated``; (d) a ``--quick``
+   tuner run for ``bench-net`` at two candidates, its file written into a
+   temporary root and read back.
 4. The dense path: the planner's own primitives for n337 on an H100
    (``plan_single``: direct, mpf, overlap_save, mpf, fft_cached, mpf,
    fft_cached ×3, direct), cut only in patch size (m=8, batch 2).  First the
@@ -75,7 +86,16 @@ Phases, in order; any failure makes the exit code non-zero:
    GPU + host RAM sub-layers (the f' and the S split) at the first
    80 -> 80 ``fft_cached`` layer's shapes with operands in pinned host
    memory, against a one-shot conv on the card, timed beside it with the
-   bytes they move over the host link.
+   bytes they move over the host link.  Then ``distributed``: two gloo
+   ranks (this script with ``--rank``) on 127.0.0.1 share the card, with
+   a timeout on the group and on their join; any rank's non-zero exit
+   fails the phase.  They run pipeline2 of the split's plan as a ring on
+   the same volume (against the oracle and the one-process pipeline2,
+   saying whether it is bitwise equal), ``gathered_conv`` at the
+   sub-layer shapes with f' split in two (against the one-shot conv) and
+   ``halo_sharded_apply`` with ``direct`` prims on a pool-free two-conv
+   net of 80 maps (against ``apply_plan``), each rank printing seconds
+   and the bytes it exchanged through pinned host memory.
 5. The plain-pool path: ``tiled_apply`` on ``bench-net`` with the
    ``use_mpf=False`` plan's primitives (P=4: 64 shifted passes a patch),
    held against the dense oracle.
@@ -495,10 +515,11 @@ def request_shapes(core: int, fov: int):
 
 
 def serve(smoke, label, reached, net, plan, params, vols, dense, device,
-          engine=None, **engine_kw):
+          engine=None, need_mixed=True, **engine_kw):
     """Serve three requests through VolumeEngine with the launch counts
     zeroed just before and read just after; hold outputs against the dense
-    oracle.  A tick that advances two requests is a mixed tick."""
+    oracle.  A tick that advances two requests is a mixed tick; one is
+    required unless ``need_mixed`` is off."""
     import torch
 
     from repro_torch import kernels
@@ -532,7 +553,8 @@ def serve(smoke, label, reached, net, plan, params, vols, dense, device,
           f"max_memory_allocated {peak_alloc}; retraces {ex.last_stats['retraces']}; "
           f"launches {json.dumps(counts)}", flush=True)
     smoke.check(all(r.done for r in reqs), f"{label}: every request done")
-    smoke.check(mixed, f"{label}: a tick mixed two requests")
+    if need_mixed:
+        smoke.check(mixed, f"{label}: a tick mixed two requests")
     for name in reached:
         smoke.check(counts[name] > 0, f"{label}: {name} launched "
                                       f"{counts[name]} times on the main path")
@@ -544,7 +566,7 @@ def serve(smoke, label, reached, net, plan, params, vols, dense, device,
                     f"dense oracle: max_abs_err {err:.3e} (atol {E2E['atol']}, "
                     f"rtol {E2E['rtol']}, max|ref| {float(want.abs().max()):.3f})")
     stats = dict(seconds=dt, voxps=vox / dt, voxels=vox, ticks=engine.ticks,
-                 ledger_peak=ex.last_stats["peak_device_bytes"],
+                 mixed=mixed, ledger_peak=ex.last_stats["peak_device_bytes"],
                  max_memory_allocated=peak_alloc)
     return engine, counts, stats
 
@@ -602,7 +624,8 @@ def run_streamed(smoke, device, net, plan, params, vols, dense, launches, seed=0
     stats, outs, budget, serve_budget = {}, {}, None, None
     for mode in ("dense", "streamed"):
         kw = {} if mode == "dense" else dict(ram_budget=budget)
-        ex = PlanExecutor(params, net, plan, fuse_os=True, device=device, **kw)
+        ex = PlanExecutor(params, net, plan, fuse_os=True, tuned=None, device=device,
+                          **kw)
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
         _sync(device)
@@ -669,7 +692,7 @@ def run_streamed(smoke, device, net, plan, params, vols, dense, launches, seed=0
     print(f"streamed serve: ram_budget {serve_budget:.0f} B", flush=True)
     engine, counts, stats["serve streamed"] = serve(
         smoke, "streamed", REACHED[True], net, plan, params, vols, dense, device,
-        fuse_os=True, ram_budget=serve_budget)
+        fuse_os=True, ram_budget=serve_budget, tuned=None)
     smoke.check(engine.executor.streaming and _released(engine.executor),
                 "streamed serve: executor streaming, every scope released")
     for name in launches:
@@ -783,7 +806,7 @@ def run_axes_fleet(smoke, device, net, plan, params, vol, want, launches):
     stats = {}
 
     # 1. the per-run override on one reuse executor, then a native axis-2 one
-    ex = PlanExecutor(params, net, plan, fuse_os=True, device=device)
+    ex = PlanExecutor(params, net, plan, fuse_os=True, tuned=None, device=device)
     outs = {}
     for axis in (1, 2):
         if device.type == "cuda":
@@ -816,7 +839,8 @@ def run_axes_fleet(smoke, device, net, plan, params, vol, want, launches):
                 "axis override: states built for axes 0, 1, 2; every scope released")
     del ex
     _free(device)
-    native = PlanExecutor(params, net, plan, fuse_os=True, sweep_axis=2, device=device)
+    native = PlanExecutor(params, net, plan, fuse_os=True, sweep_axis=2, tuned=None,
+                          device=device)
     out = native.run(vol)
     s = native.last_stats
     print(f"axis native 2: a sweep_axis=2 executor, {s['seconds']:.3f} s = "
@@ -833,7 +857,7 @@ def run_axes_fleet(smoke, device, net, plan, params, vol, want, launches):
     mixed = []
     for rep in range(2):
         eng = VolumeEngine(params, net, plan, batch=MIXED_BATCH, fuse_os=True,
-                           device=device)
+                           tuned=None, device=device)
         reqs = [VolumeRequest(a, vol, sweep_axis=a) for a in (0, 1, 2)]
         dt, counts, alloc = _drain(eng, reqs, device)
         ex = eng.executor
@@ -862,7 +886,8 @@ def run_axes_fleet(smoke, device, net, plan, params, vol, want, launches):
     del mixed
 
     # 3-4. the fleet against a solo single-device streaming engine
-    solo = VolumeEngine(params, net, plan, fuse_os=True, streaming=True, device=device)
+    solo = VolumeEngine(params, net, plan, fuse_os=True, streaming=True, tuned=None,
+                        device=device)
     single = {}
     for axis in (0, 1):
         req = VolumeRequest(0, vol, sweep_axis=axis)
@@ -883,7 +908,8 @@ def run_axes_fleet(smoke, device, net, plan, params, vol, want, launches):
             ("fault drill N=3", 3, 0, KillWorker(1, at_tick=5)))
     for label, n, axis, hooks in runs:
         fleet = ShardedVolumeEngine(params, net, plan, n_workers=n, fuse_os=True,
-                                    sweep_axis=axis, fault_hooks=hooks, device=device)
+                                    sweep_axis=axis, fault_hooks=hooks, tuned=None,
+                                    device=device)
         handoff = _time_handoffs(fleet, device)
         req = VolumeRequest(0, vol)
         dt, counts, alloc = _drain(fleet, [req], device)
@@ -923,6 +949,97 @@ def run_axes_fleet(smoke, device, net, plan, params, vol, want, launches):
         del fleet, req
         _free(device)
     return stats
+
+
+def run_tuned(smoke, device, net, plan, params, vols, dense, launches, serving, seed=0):
+    """Phase 3, tuned: the committed config for this card, served two ways
+    under ``tuned="auto"`` with no explicit knob, then a short tuner run."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from repro_torch import kernels
+    from repro_torch.serving import VolumeEngine
+    from repro_torch.tuning import (
+        autotune,
+        load_tuned_config,
+        normalize_device_kind,
+        save_tuned_config,
+    )
+
+    # (a) the committed config for (this card, the net); never skipped
+    kind = normalize_device_kind(device=device)
+    cfg = load_tuned_config(net.name, device=device)
+    smoke.check(cfg is not None and cfg.device_kind == kind and cfg.net == net.name,
+                f"tuned: the committed config for ({kind}, {net.name}) loads: {cfg}")
+    if cfg is None:
+        return {}
+    rows = {}
+    reached = REACHED[bool(cfg.fuse_os)]
+    # (b) fused_tuned: the deployed plan, its knobs from the config
+    engine, counts, rows["fused_tuned"] = serve(
+        smoke, "fused_tuned", reached, net, plan, params, vols, dense, device,
+        tuned="auto")
+    ex = engine.executor
+    smoke.check(ex.tuned == cfg and (ex.m, ex.batch) == (plan.m_final, plan.batch)
+                and ex.fuse_os == bool(cfg.fuse_os) and ex.fuse_pairs == bool(cfg.fuse_pairs),
+                f"fused_tuned: the plan's m {ex.m} and batch {ex.batch}, the config's "
+                f"fuse_os {ex.fuse_os} and fuse_pairs {ex.fuse_pairs}")
+    rows["fused_tuned"]["tuned_config"] = ex.tuned_provenance()
+    print(f"fused_tuned: {rows['fused_tuned']['voxps']:.1f} vox/s beside the untuned "
+          f"fuse_os serve's {serving['fuse_os=True']['voxps']:.1f}; tuned_provenance "
+          f"{json.dumps(ex.tuned_provenance())}", flush=True)
+    for name in launches:
+        launches[name] += counts[name]
+    del engine, ex
+    _free(device)
+
+    # (c) plan-less: m and batch from the config too
+    fov = net.field_of_view()
+    core = cfg.m * net.total_pooling()
+    rng = np.random.default_rng(seed + 7)
+    tvols = [rng.normal(size=(net.in_channels,) + s).astype(np.float32)
+             for s in request_shapes(core, fov)]
+    tdense = [dense_oracle(net, params, v, device) for v in tvols]
+    _free(device)
+    engine = VolumeEngine(params, net, prims=autotune._os_prims(net), tuned="auto",
+                          device=device)
+    ex = engine.executor
+    smoke.check(ex.tuned == cfg and (ex.m, ex.batch) == (cfg.m, cfg.batch),
+                f"tuned plan-less: m {ex.m} and batch {ex.batch} from the config")
+    engine, counts, rows["tuned plan-less"] = serve(
+        smoke, "tuned plan-less", reached, net, None, params, tvols, tdense, device,
+        engine=engine, need_mixed=False)
+    for name in launches:
+        launches[name] += counts[name]
+    del engine, ex, tvols, tdense
+    _free(device)
+
+    # (d) a short tuner run on this card, written into a temporary root
+    with tempfile.TemporaryDirectory() as root:
+        kernels.reset_launch_counts()
+        t = time.perf_counter()
+        winner, results, meta = autotune.autotune_net(
+            "bench-net", shortlist=2, quick=True, device=device)
+        dt = time.perf_counter() - t
+        counts = kernels.launch_counts()
+        path = save_tuned_config(winner, root=Path(root))
+        back = load_tuned_config("bench-net", device=device, root=Path(root))
+        print(f"tuner --quick: bench-net, {len(meta['shortlist'])} of {len(meta['grid'])} "
+              f"candidates in {dt:.1f} s: {json.dumps(results)}; predicted "
+              f"({meta['profile']}) {json.dumps(meta['predicted'])}; out of memory "
+              f"{meta['oom']}; winner {winner}; launches {json.dumps(counts)}", flush=True)
+        smoke.check(len(results) == 2 and set(meta["shortlist"]) <= set(meta["grid"]),
+                    "tuner --quick: two candidates measured, the shortlist in the grid")
+        smoke.check(back == winner and path.name == f"{kind}__bench-net.json",
+                    f"tuner --quick: {path.name} round-trips through load_tuned_config")
+        for name in REACHED[False]:
+            smoke.check(counts[name] > 0, f"tuner --quick: {name} launched "
+                                          f"{counts[name]} times")
+    rows["tuner quick"] = dict(seconds=dt, results=results)
+    _free(device)
+    return rows
 
 
 def peak_live_blocks(events, baseline: int):
@@ -1178,7 +1295,7 @@ def run_dense(smoke, device, net, params, hw, m, batch, launches, serving, gen,
     print(f"dense plan: core {plan.core} n_in {plan.n_in} batch {plan.batch} "
           f"prims {plan.prims}; layer inputs "
           f"{[(c.prim, c.in_shape[0], c.in_shape[1]) for c in plan.choices]}", flush=True)
-    engine = VolumeEngine(params, net, plan, device=device)
+    engine = VolumeEngine(params, net, plan, tuned=None, device=device)
     smoke.check(not engine.executor._os_reuse and engine.executor.fuse_pairs,
                 "dense plan: dense walk with fused conv+pool pairs")
     results = check_dense_kernels(smoke, engine.executor, plan, params, device, gen, hw)
@@ -1202,9 +1319,15 @@ def run_dense(smoke, device, net, params, hw, m, batch, launches, serving, gen,
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t = time.perf_counter()
-    run_split(smoke, device, net, params, vols[2], dense[2], launches, serving)
+    splits = run_split(smoke, device, net, params, vols[2], dense[2], launches, serving)
     run_sublayers(smoke, device, plan, params, gen, launches, serving)
     print(f"split and sub-layer phases: {time.perf_counter() - t:.1f} s", flush=True)
+    _free(device)
+    t = time.perf_counter()
+    serving["distributed"] = run_distributed(
+        smoke, device, net, params, vols[2], dense[2], splits.get("pipeline2"),
+        serving.get("pipeline2", {}).get("seconds", float("nan")), launches)
+    print(f"distributed phase: {time.perf_counter() - t:.1f} s", flush=True)
     return results
 
 
@@ -1249,7 +1372,8 @@ def host_cpu_model() -> str:
 
 def run_split(smoke, device, net, params, vol, want, launches, serving):
     """Phase 4, split: the paper's CPU+GPU pipeline (``hetero``) and the
-    two-stage pipeline (``pipeline2``), one volume swept offline each."""
+    two-stage pipeline (``pipeline2``), one volume swept offline each.
+    Returns each split's output volume."""
     import torch
 
     from repro_torch import kernels
@@ -1263,6 +1387,7 @@ def run_split(smoke, device, net, params, vol, want, launches, serving):
         "hetero": planner.plan_hetero(net, (XEON_E7_8890V3_4WAY, H100_SXM), max_m=8),
         "pipeline2": planner.plan_pipeline2(net, H100_SXM, chips_per_stage=1, max_m=8),
     }
+    outs = {}
     for label, plan in plans.items():
         if plan is None:
             smoke.check(False, f"{label}: the planner found no plan")
@@ -1271,7 +1396,7 @@ def run_split(smoke, device, net, params, vol, want, launches, serving):
               f"{plan.m_final}, batch {plan.batch}, core {plan.core}, prims {plan.prims}, "
               f"predicted {plan.throughput:.1f} vox/s, stage_times {plan.stage_times}, "
               f"xfer_bytes {plan.xfer_bytes:.0f}", flush=True)
-        ex = PlanExecutor(params, net, plan, device=device)
+        ex = PlanExecutor(params, net, plan, tuned=None, device=device)
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
         _sync(device)
@@ -1286,6 +1411,7 @@ def run_split(smoke, device, net, params, vol, want, launches, serving):
               f"{s['measured_voxps']:.1f} vox/s (predicted {s['predicted_voxps']:.1f}); "
               f"peak_device_bytes (ledger) {s['peak_device_bytes']:.0f}, "
               f"max_memory_allocated {alloc}; launches {json.dumps(counts)}", flush=True)
+        outs[label] = out
         got = torch.from_numpy(out)
         ok, err = _close(got, want, **E2E)
         smoke.check(ok and bool(torch.isfinite(got).all()),
@@ -1321,6 +1447,229 @@ def run_split(smoke, device, net, params, vol, want, launches, serving):
         del ex
         if device.type == "cuda":
             torch.cuda.empty_cache()
+    return outs
+
+
+# the distributed phase's two ranks share the card: the gloo group's
+# timeout, and the deadline for both ranks to exit
+RANK_GROUP_TIMEOUT = 300  # seconds
+RANK_JOIN_TIMEOUT = 600  # seconds
+# what the ranks run: gathered_conv at the sub-layer phase's shapes
+# (x (S, f, n³), w (f, f, k³)), halo_sharded on HALO_CX x-planes a rank of
+# HALO_YZ² each, through a two-conv net of HALO_WIDTH maps
+GATHERED = dict(S=128, f=80, n=35, k=3)
+HALO_CX, HALO_YZ, HALO_WIDTH = 64, 128, 80
+
+
+def run_distributed(smoke, device, net, params, vol, want, one_proc, one_proc_s,
+                    launches):
+    """Phase 4, distributed: two gloo ranks (``--rank`` processes of this
+    script) on 127.0.0.1 share the card and run pipeline2 as a ring, then
+    ``gathered_conv`` and ``halo_sharded_apply``.  Each rank zeroes the
+    launch counts and the exchanged bytes just before each run and reads
+    them just after; any rank's non-zero exit fails the phase."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed.host_group import free_port
+
+    with tempfile.TemporaryDirectory() as work:
+        torch.save([None if p is None else (p[0].cpu(), p[1].cpu()) for p in params],
+                    os.path.join(work, "params.pt"))
+        np.save(os.path.join(work, "vol.npy"), vol)
+        spec = dict(device=str(device), gathered=GATHERED,
+                    halo=dict(cx=HALO_CX, yz=HALO_YZ, width=HALO_WIDTH),
+                    net=dict(name=net.name, in_channels=net.in_channels,
+                             layers=[[l.kind, l.size, l.out_channels] for l in net.layers]))
+        with open(os.path.join(work, "spec.json"), "w") as fh:
+            json.dump(spec, fh)
+        port = free_port()
+        logs = [open(os.path.join(work, f"rank{r}.log"), "w+") for r in range(2)]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank", str(r), "--world", "2",
+             "--port", str(port), "--dir", work],
+            stdout=logs[r], stderr=subprocess.STDOUT) for r in range(2)]
+        t0 = time.perf_counter()
+        try:
+            # join both ranks by the deadline; a rank that fails ends the wait
+            while any(p.poll() is None for p in procs):
+                if (any(p.poll() not in (None, 0) for p in procs)
+                        or time.perf_counter() - t0 > RANK_JOIN_TIMEOUT):
+                    break
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            log.seek(0)
+            for line in log.read().splitlines():
+                print(f"rank {r}: {line}", flush=True)
+            log.close()
+            smoke.check(p.returncode == 0, f"distributed: rank {r} exited {p.returncode}")
+        if any(p.returncode != 0 for p in procs):
+            return {}
+        res = []
+        for r in range(2):
+            with open(os.path.join(work, f"rank{r}.json")) as fh:
+                res.append(json.load(fh))
+        outs = [np.load(os.path.join(work, f"pipeline2.{r}.npy")) for r in range(2)]
+    print("distributed: two ranks share one card, so these times measure "
+          "correctness and the cost of the hand-off through host memory, not scaling",
+          flush=True)
+    for r, (row, out) in enumerate(zip(res, outs)):
+        p2 = row["pipeline2"]
+        print(f"distributed pipeline2 rank {r}: {p2['patches']} patches in "
+              f"{p2['batches']} chunks ({p2['padded_patches']} padding), {p2['seconds']:.3f} s "
+              f"(one process: {one_proc_s:.3f} s), {p2['sent']} B sent and "
+              f"{p2['received']} B received", flush=True)
+        got = torch.from_numpy(out)
+        ok, err = _close(got, want, **E2E)
+        smoke.check(ok and bool(torch.isfinite(got).all()),
+                    f"distributed pipeline2 rank {r}: output {tuple(out.shape)} vs dense "
+                    f"oracle: max_abs_err {err:.3e} (atol {E2E['atol']}, rtol {E2E['rtol']})")
+        if one_proc is not None:
+            ok1, err1 = _close(got, torch.from_numpy(one_proc), **E2E)
+            bitwise = bool(np.array_equal(out, one_proc))
+            row["pipeline2"]["bitwise_one_process"] = bitwise
+            smoke.check(ok1, f"distributed pipeline2 rank {r} vs the one-process "
+                             f"pipeline2: max_abs_err {err1:.3e}, bitwise equal: {bitwise}")
+        for label, reached in (("pipeline2", REACHED["pipeline2"]),
+                               ("gathered_conv", REACHED["sublayer"]),
+                               ("halo_sharded", ("conv3d",))):
+            counts = row[label]["launches"]
+            for name in reached:
+                smoke.check(counts[name] > 0, f"distributed {label} rank {r}: {name} "
+                                              f"launched {counts[name]} times")
+            for name in launches:
+                launches[name] += counts[name]
+        for label in ("gathered_conv", "halo_sharded"):
+            x = row[label]
+            smoke.check(x["ok"], f"distributed {label} rank {r} vs its one-process "
+                                 f"counterpart: max_abs_err {x['max_abs_err']:.3e} "
+                                 f"(atol {E2E['atol']}, rtol {E2E['rtol']})")
+    return {f"rank {r}": row for r, row in enumerate(res)}
+
+
+def rank_main(rank: int, world: int, port: int, work: str) -> int:
+    """One rank of the distributed phase (``chip_smoke.py --rank R --world
+    N --port P --dir D``): pipeline2 of the split phase's plan on its
+    volume as a ring, then ``gathered_conv`` at the sub-layer shapes, then
+    ``halo_sharded_apply`` with ``direct`` prims on a pool-free two-conv
+    net at n337's width; the net, device and sizes from ``D/spec.json``,
+    results to ``D/rank{R}.json``."""
+    sys.path.insert(0, SRC)
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import kernels
+    from repro_torch.configs.base import ConvLayerSpec as L, ConvNetConfig as C
+    from repro_torch.core import convnet, planner
+    from repro_torch.core.distributed_inference import halo_sharded_apply
+    from repro_torch.core.hw import H100_SXM
+    from repro_torch.core.primitives import conv_apply
+    from repro_torch.core.sublayer import gathered_conv
+    from repro_torch.distributed import host_group
+    from repro_torch.volume import PlanExecutor
+
+    with open(os.path.join(work, "spec.json")) as fh:
+        spec = json.load(fh)
+    device = torch.device(spec["device"])
+    net = C(spec["net"]["name"], spec["net"]["in_channels"],
+            tuple(L(*l) for l in spec["net"]["layers"]))
+    host_group.init_host_group(rank, world, port, timeout_s=RANK_GROUP_TIMEOUT)
+    rows = {}
+
+    def measured(label, fn):
+        dist.barrier()
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        kernels.reset_launch_counts()
+        host_group.reset_exchanged_bytes()
+        _sync(device)
+        t = time.perf_counter()
+        out = fn()
+        _sync(device)
+        row = dict(seconds=time.perf_counter() - t, launches=kernels.launch_counts(),
+                   **host_group.exchanged_bytes(), max_memory_allocated=(
+                       torch.cuda.max_memory_allocated(device)
+                       if device.type == "cuda" else 0))
+        rows[label] = row
+        return out, row
+
+    def one_process(row, fn):
+        _sync(device)
+        t = time.perf_counter()
+        out = fn()
+        _sync(device)
+        row["one_process_seconds"] = time.perf_counter() - t
+        return out
+
+    def close(row, got, want):
+        ok, err = _close(got, want, **E2E)
+        row.update(ok=ok, max_abs_err=err, shape=list(got.shape))
+
+    try:
+        params = [None if p is None else (p[0].to(device), p[1].to(device))
+                  for p in torch.load(os.path.join(work, "params.pt"))]
+        vol = np.load(os.path.join(work, "vol.npy"))
+        plan = planner.plan_pipeline2(net, H100_SXM, chips_per_stage=1, max_m=8)
+        ex = PlanExecutor(params, net, plan, tuned=None, device=device)
+        out, row = measured("pipeline2", lambda: ex.run(vol))
+        row.update({k: ex.last_stats[k] for k in (
+            "patches", "batches", "padded_patches", "measured_voxps", "peak_device_bytes")})
+        np.save(os.path.join(work, f"pipeline2.{rank}.npy"), out)
+        del ex, params
+        _free(device)
+
+        gs = spec["gathered"]
+        S, f, n, k = gs["S"], gs["f"], gs["n"], gs["k"]
+        x = torch.randn((S, f, n, n, n), device=device,
+                        generator=torch.Generator(device=device).manual_seed(11))
+        g = torch.Generator().manual_seed(12)
+        w = (torch.randn((f, f, k, k, k), generator=g) * (2.0 / (f * k**3)) ** 0.5).to(device)
+        b = (0.1 * torch.randn((f,), generator=g)).to(device)
+        sl = slice(rank * f // world, (rank + 1) * f // world)
+        w_shard, b_shard = w[sl].contiguous(), b[sl].contiguous()
+        got, row = measured("gathered_conv",
+                            lambda: gathered_conv(x, w_shard, b_shard, variant="fft"))
+        close(row, got, one_process(row, lambda: conv_apply("fft", x, w, b)))
+        del x, got
+        _free(device)
+
+        # the reference test's pool-free two-conv net at n337's width
+        hs = spec["halo"]
+        cx, yz, width = hs["cx"], hs["yz"], hs["width"]
+        hnet = C(f"halo-w{width}", 1, (L("conv", 3, width), L("conv", 2, width)))
+        g = torch.Generator().manual_seed(13)
+        hp = [(w_, 0.1 * torch.randn(w_.shape[:1], generator=g).to(device))
+              for w_, _ in convnet.init_params(hnet, g, device=device)]
+        nx = world * cx
+        xh = torch.randn((1, 1, nx, yz, yz), generator=g).to(device)
+        local = xh[:, :, rank * cx:(rank + 1) * cx].contiguous()
+        prims = ["direct", "direct"]
+        got, row = measured("halo_sharded",
+                            lambda: halo_sharded_apply(hp, hnet, local, prims))
+        want = one_process(row, lambda: convnet.apply_plan(hp, hnet, xh, prims))
+        # valid: all but the last rank's FOV-1 = 3 trailing planes
+        v = min(cx, nx - 3 - rank * cx)
+        close(row, got[:, :, :v], want[:, :, rank * cx:rank * cx + v])
+        for label, r in rows.items():
+            extra = "".join(f", {k} {r[k]:.3e}" if k == "max_abs_err" else f", {k} {r[k]:.3f}"
+                            for k in ("one_process_seconds", "max_abs_err") if k in r)
+            print(f"{label}: {r['seconds']:.3f} s{extra}; sent {r['sent']} B, received "
+                  f"{r['received']} B through pinned host memory; max_memory_allocated "
+                  f"{r['max_memory_allocated']}; launches {json.dumps(r['launches'])}",
+                  flush=True)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as fh:
+        json.dump(rows, fh)
+    return 0
 
 
 def run_sublayers(smoke, device, plan, params, gen, launches, serving):
@@ -1768,7 +2117,7 @@ def run(device, net, m: int, batch: int, hw, seed: int = 0, *, dense_m: int,
 
     from repro_torch.serving import VolumeEngine
 
-    engine = VolumeEngine(params, net, plan, fuse_os=False, device=device)
+    engine = VolumeEngine(params, net, plan, fuse_os=False, tuned=None, device=device)
     results = check_kernels(smoke, engine.executor, plan, device, gen)
     check_ragged(smoke, device, gen)
     launches = {name: 0 for name in KERNELS}
@@ -1777,7 +2126,7 @@ def run(device, net, m: int, batch: int, hw, seed: int = 0, *, dense_m: int,
         label = f"fuse_os={fuse_os}"
         engine, counts, serving[label] = serve(
             smoke, label, REACHED[fuse_os], net, plan, params, vols, dense, device,
-            engine=engine if not fuse_os else None, fuse_os=fuse_os,
+            engine=engine if not fuse_os else None, fuse_os=fuse_os, tuned=None,
         )
         smoke.check(engine.executor.fuse_os == fuse_os, f"{label}: executor mode")
         for name in launches:
@@ -1799,7 +2148,13 @@ def run(device, net, m: int, batch: int, hw, seed: int = 0, *, dense_m: int,
     t = time.perf_counter()
     serving.update(run_axes_fleet(smoke, device, net, plan, params, vol, want, launches))
     print(f"axes and fleet phase: {time.perf_counter() - t:.1f} s", flush=True)
-    del dense, vol, want
+    del vol, want
+    _free(device)
+    t = time.perf_counter()
+    serving.update(run_tuned(smoke, device, net, plan, params, vols, dense, launches,
+                             serving, seed))
+    print(f"tuned phase: {time.perf_counter() - t:.1f} s", flush=True)
+    del dense
     _free(device)
     if device.type == "cuda":
         print(f"allocated after the reuse phases: {torch.cuda.memory_allocated(device)} B",
@@ -1815,6 +2170,16 @@ def run(device, net, m: int, batch: int, hw, seed: int = 0, *, dense_m: int,
 
 
 def main() -> int:
+    if len(sys.argv) > 1:
+        # one rank of the distributed phase, started by run_distributed
+        import argparse
+
+        ap = argparse.ArgumentParser()
+        for flag in ("--rank", "--world", "--port"):
+            ap.add_argument(flag, type=int, required=True)
+        ap.add_argument("--dir", required=True)
+        args = ap.parse_args()
+        return rank_main(args.rank, args.world, args.port, args.dir)
     try:
         import torch
     except ImportError:

@@ -11,8 +11,11 @@ mpf          — max-pooling fragments + recombination, plain pooling
 primitives   — primitive registry (cost+setup+apply) and CompiledPlan
 cost_model   — Tables I/II analytics feeding the planner
 planner      — memory-constrained throughput maximization (+ strategies)
-pipeline     — the two-stage CPU+GPU pipeline: schedule, stages, placement
-sublayer     — the GPU + host RAM sub-layers (f' and S splits)
+pipeline     — the two-stage CPU+GPU pipeline: schedule, stages, placement,
+               and its ring over a process group
+sublayer     — the GPU + host RAM sub-layers (f' and S splits) and the
+               conv with weights sharded over a process group
+distributed_inference — patchwise and halo-sharded inference over ranks
 staging      — host → device copies on a side CUDA stream
 convnet      — parameters, apply_plan and the dense sliding-window oracle
 hw           — hardware model constants (H100 SXM target)
@@ -23,6 +26,7 @@ from . import (  # noqa: F401
     convnet,
     cost_model,
     direct_conv,
+    distributed_inference,
     fft_conv,
     hw,
     mpf,

@@ -5,9 +5,11 @@ for patch t while the other computes layers [θ, L) for patch t-1, with a
 queue of depth 1 (the producer stalls until the consumer drains).
 
 ``pipeline_schedule`` simulates that queue-depth-1 timeline (for tests and
-the Fig. 8 analysis); ``pipelined_apply`` runs it over a patch stream in
-one process; ``make_stage_fns`` binds the two stages to a compiled plan;
-``hetero_stage_devices`` says where each stage of a ``hetero`` plan runs.
+the Fig. 8 analysis); ``pipelined_apply`` runs it over a patch stream, in
+one process or as a ring over a ``torch.distributed`` process group (one
+stage hand-off per step, through host memory); ``make_stage_fns`` binds
+the two stages to a compiled plan; ``hetero_stage_devices`` says where
+each stage of a ``hetero`` plan runs.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Callable, List, Sequence, Tuple
 
 import torch
 
+from ..distributed.host_group import exchange, group_rank, group_size
 from .hw import is_host_cpu
 
 
@@ -76,22 +79,34 @@ def pipeline_schedule(
 
 
 def pipelined_apply(
-    stage0: Callable, stage1: Callable, xs: torch.Tensor
+    stage0: Callable, stage1: Callable, xs: torch.Tensor, *, group=None
 ) -> torch.Tensor:
     """Run stage0 → stage1 over a stream of patches ``xs`` (T, ...).
 
-    The queue-depth-1 loop in one process: step t applies stage 1 to the
+    With no process group (none initialized, or a group of one) this is
+    the queue-depth-1 loop in one process: step t applies stage 1 to the
     stage-0 activation of step t-1 (the one-slot queue) and stage 0 to
-    patch t.  Returns the stage-1 outputs stacked in patch order.  The
-    ring over several processes (the reference's ``ppermute`` over the
-    ``pod`` mesh axis, each process a stage) waits for the port's fleet
-    (ROADMAP.md Queue 1, item 5: ``torch.distributed``).
+    patch t; the outputs come back stacked in patch order.
+
+    With n ranks in ``group`` it is the reference's ring over the ``pod``
+    mesh axis: ``xs`` is this rank's local stream, the stage-0 output of
+    step t goes to rank (r+1) % n, which applies stage 1 at step t+1 (the
+    first slot is the fill bubble).  The returned stream is stage 1 of
+    the PREVIOUS rank's patches, aligned to that rank's steps; the caller
+    realigns (``PlanExecutor._run_pipeline`` rolls the gathered streams
+    by one local-stream length).  Every hand-off goes through host memory
+    (``distributed.host_group.exchange``), counted in bytes.
     """
-    a = stage0(xs[0])
+    n, r = group_size(group), group_rank(group)
+
+    def hand_off(a):  # to the next rank; receive from the previous one
+        return a if n == 1 else exchange(a, (r + 1) % n, a, (r - 1) % n, group)
+
+    a = hand_off(stage0(xs[0]))
     ys = []
     for x in xs[1:]:
         ys.append(stage1(a))  # the consumer drains patch t-1 ...
-        a = stage0(x)  # ... while the producer fills the slot with patch t
+        a = hand_off(stage0(x))  # ... while the producer fills the slot with patch t
     ys.append(stage1(a))
     return torch.stack(ys)
 

@@ -18,9 +18,14 @@ by chunk, each chunk copied one ahead on a side stream
 (``staging.HostStager``) while the current chunk computes, and each
 output chunk comes back to where ``x`` lies.  With every operand on the
 device they are the reference's chunked maps.  Padding, chunk order and
-result are the reference's (``src/repro/core/sublayer.py``).  The
-reference's ``gathered_conv`` (weights sharded over a mesh axis) waits
-for the port's fleet (ROADMAP.md Queue 1, item 5).
+result are the reference's (``src/repro/core/sublayer.py``).
+
+* ``gathered_conv`` — the weights arrive sharded along f' over the ranks
+  of a ``torch.distributed`` process group: each rank convolves its
+  output-channel slice, then the slices are all-gathered along channels
+  through host memory (``distributed.host_group``), so every rank holds
+  the whole output: the paper's "results transferred back to host
+  exactly once".
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from typing import Optional
 
 import torch
 
+from ..distributed.host_group import all_gather_cat
 from ..kernels.dispatch import DeviceLike
 from .primitives import conv_apply
 from .staging import HostStager
@@ -134,3 +140,24 @@ def streamed_conv_batch(
         out[i * chunk : (i + 1) * chunk].copy_(o, non_blocking=True)
     _finish(dev)
     return out
+
+
+def gathered_conv(
+    x: torch.Tensor,
+    w_shard: torch.Tensor,
+    b_shard: Optional[torch.Tensor],
+    *,
+    group=None,
+    variant: str = "fft",
+    use_kernels: Optional[bool] = None,
+) -> torch.Tensor:
+    """Every rank of ``group`` calls it with the whole input ``x`` and its
+    slice of the weights along f' (w_shard (f'/n, f, k³), slices in rank
+    order): a local conv of that slice (no gather needed for the
+    compute), then the slices all-gathered along channels, so every rank
+    returns the full (S, f', n'³) output.  Bytes through host memory: the
+    output tensor once around the group (the analogue of Fig. 6's green
+    arrows).
+    """
+    o_local = conv_apply(variant, x, w_shard, b_shard, use_kernels=use_kernels)
+    return all_gather_cat(o_local, 1, group)

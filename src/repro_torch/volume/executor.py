@@ -53,7 +53,9 @@ output is bitwise equal to dense.
 
 Split strategies (``pipeline2``/``hetero`` plans) walk raw patches through
 layers [0, θ) and [θ, L) as two stages.  ``pipeline2`` runs the
-queue-depth-1 loop ``core.pipeline.pipelined_apply`` in one process;
+queue-depth-1 loop ``core.pipeline.pipelined_apply``: in one process, or,
+with a ``torch.distributed`` default group initialized, as a ring over its
+ranks, each running its share of the chunks (the reference's pod axis);
 ``hetero`` places each stage on the device class of the profile it was
 priced on (``pipeline.hetero_stage_devices``: a host-CPU profile's stage
 runs on the CPU with the plain versions, the other on the executor's
@@ -82,8 +84,12 @@ scope's cache entries at or past a plane to host tensors (a
 into another scope, and ``handoff_entry_nbytes`` sizes one entry of each
 kind for the fleet's exact byte prediction.
 
-Not ported yet (raises ``NotImplementedError`` naming its ROADMAP.md
-item): tuned configs.
+Per-hardware tuned configs (``repro_torch.tuning``): ``tuned="auto"``
+loads the persisted winner for (the executor's device kind, ``net.name``)
+if one exists; a ``TunedConfig`` is taken as given.  It fills only knobs
+the caller left unset: ``fuse_pairs``, ``fprime_chunk`` and ``fuse_os``,
+and m and batch only on a plan-less build (with a Plan they are part of
+the planner's costed geometry).  ``tuned_provenance`` reports it.
 """
 
 from __future__ import annotations
@@ -91,7 +97,7 @@ from __future__ import annotations
 import itertools
 import math
 import time
-from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -113,8 +119,10 @@ from ..core.primitives import (
     resolve_primitive,
 )
 from ..core.staging import HostStager, pin
+from ..distributed.host_group import all_gather_cat, group_rank, group_size
 from ..kernels.dispatch import DeviceLike, resolve_device, resolve_use_kernels
 from ..kernels.os_segment import ops as _seg_ops
+from ..tuning.store import TunedConfig, load_tuned_config
 from .tiler import (
     HaloSpec,
     SweepCounts,
@@ -223,10 +231,6 @@ def _tree_nbytes(*trees) -> float:
     return sum(seen.values())
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md {item})")
-
-
 def _states_to(states, device: torch.device):
     """A copy of prepared state dicts with every tensor on ``device``."""
     return [
@@ -257,7 +261,7 @@ class PlanExecutor:
         fuse_pairs: Optional[bool] = None,
         fprime_chunk=None,
         fuse_os: Optional[bool] = None,
-        tuned="auto",
+        tuned: Union[str, TunedConfig, None] = "auto",
         deep_reuse: bool = True,
         ram_budget: Optional[float] = None,
         streaming: Optional[bool] = None,
@@ -265,10 +269,25 @@ class PlanExecutor:
         device: DeviceLike = None,
     ):
         self.device = resolve_device(device)
-        # the port has no tuned-config store yet: "auto" finds nothing
-        if tuned not in ("auto", None):
-            raise _not_ported("tuned configs", "Queue 1 item 9")
-        self.tuned = None
+        # per-hardware tuned config: ``"auto"`` loads the persisted winner
+        # for (this executor's device kind, net.name) if one exists.  It
+        # fills only knobs the caller left unset, and m/batch only on a
+        # plan-less build: with a Plan they are the planner's costed
+        # geometry (predicted == measured counters).
+        self.tuned: Optional[TunedConfig] = (
+            load_tuned_config(net.name, device=self.device) if tuned == "auto"
+            else (tuned if isinstance(tuned, TunedConfig) else None)
+        )
+        if self.tuned is not None:
+            if fuse_pairs is None:
+                fuse_pairs = self.tuned.fuse_pairs
+            if fprime_chunk is None:
+                fprime_chunk = self.tuned.fprime_chunk
+            if fuse_os is None:
+                fuse_os = self.tuned.fuse_os
+            if plan is None and prims is not None:
+                m = m if m is not None else self.tuned.m
+                batch = batch if batch is not None else self.tuned.batch
         if sweep_axis is None:
             sweep_axis = getattr(plan, "sweep_axis", 0) if plan is not None else 0
         self.sweep_axis = int(sweep_axis)
@@ -395,6 +414,11 @@ class PlanExecutor:
         strip_states = getattr(self, "_strip_states", [])
         self._ledger.alloc(_tree_nbytes(self.params, self.compiled.states, strip_states))
         self._predict_memory_cache: Dict[Tuple[int, int, int, int], Any] = {}
+
+    def tuned_provenance(self) -> Optional[Dict[str, Any]]:
+        """The tuned config this executor runs under (``TunedConfig.
+        provenance``), ``None`` when untuned."""
+        return None if self.tuned is None else self.tuned.provenance()
 
     # -- geometry ------------------------------------------------------------
 
@@ -1313,17 +1337,27 @@ class PlanExecutor:
     def _run_pipeline(self, padded, tiling, out):
         """pipeline2: stream patch chunks through the two-stage loop.
 
-        One process holds both stages (the reference's ring over a pod
-        mesh axis with ``n_pods = 1``), so the stream is the chunks in
-        order and the padding is the last chunk's repeated patches.
+        One process holds both stages (the reference's ring with
+        ``n_pods = 1``) unless a default ``torch.distributed`` group is
+        initialized: then its n ranks form the ring.  The chunk count is
+        padded to a multiple of n (the padding repeats the last patch),
+        each rank runs its contiguous local stream (the reference's
+        ``P("pod")`` split), and the outputs are gathered through host
+        memory and rolled by one local-stream length, since rank r's
+        outputs are rank r-1's patches.  Every rank returns the whole
+        volume.
         """
         S = self.batch
         specs = list(tiling.patches)
-        T = math.ceil(len(specs) / S)
+        n_chunks = math.ceil(len(specs) / S)
+        n_ranks, rank = group_size(), group_rank()
+        # equal local stream length per rank: pad the chunk count
+        T = math.ceil(n_chunks / n_ranks) * n_ranks
+        T_local = T // n_ranks
         xs_all = np.empty((T, S, padded.shape[0]) + (tiling.extent,) * 3, np.float32)
         chunk_specs: List[List] = []
         for t in range(T):
-            chunk = specs[t * S : (t + 1) * S]
+            chunk = specs[t * S : (t + 1) * S] or [specs[-1]]
             chunk_specs.append(chunk)
             for j in range(S):
                 spec = chunk[min(j, len(chunk) - 1)]
@@ -1331,9 +1365,16 @@ class PlanExecutor:
         stage0, stage1 = make_stage_fns(self.compiled, self.theta)
         # the schedule stages the whole patch stream at once
         self._ledger.transient(xs_all.nbytes)
-        ys = pipelined_apply(stage0, stage1, self._upload(xs_all))
+        local = xs_all[rank * T_local : (rank + 1) * T_local]
+        ys = pipelined_apply(stage0, stage1, self._upload(local))
+        if n_ranks > 1:
+            # ring hand-off: rank r's local outputs are rank r-1's patches;
+            # roll the rank-major chunk axis by one local-stream length
+            ys = all_gather_cat(ys, 0)
+            ys = torch.roll(ys.reshape((n_ranks, T_local) + ys.shape[1:]), -1, 0)
+            ys = ys.reshape((T,) + ys.shape[2:])
         pools = list(self.compiled.mpf_pools)
-        for t, chunk in enumerate(chunk_specs):
+        for t, chunk in enumerate(chunk_specs[:n_chunks]):
             y = ys[t]
             if pools:
                 y = recombine_fragments(y, pools, S)

@@ -142,7 +142,7 @@ def test_axis_parity_and_counter_exactness(both, reference, shape, batch, axis):
     name = next(k for k, v in SHAPES.items() if v == shape)
     vol = _vol(shape)
     dense = PlanExecutor(params, NET, prims=MIX, m=1, batch=batch, sweep_axis=axis,
-                         device="cpu")
+                         tuned=None, device="cpu")
     out_d = dense.run(vol)
     np.testing.assert_allclose(out_d, dense_ref[name], **TOL)
     want = predictors[batch].predict_counts(shape, sweep_axis=axis)
@@ -219,7 +219,8 @@ SHAPE_B = (2 * CORE + 1 + FOV - 1, CORE + FOV - 1, 3 * CORE + 2 + FOV - 1)
 
 def _run_mixed_pair(params, vol_a, vol_b, batch=4):
     """Serve (A on axis 1, B on axis 2) on one engine."""
-    eng = VolumeEngine(params, NET, prims=MIX, m=1, batch=batch, device="cpu")
+    eng = VolumeEngine(params, NET, prims=MIX, m=1, batch=batch, tuned=None,
+                       device="cpu")
     strips = {1: [], 2: []}
     reqs = [
         VolumeRequest(rid=ax, volume=vol, sweep_axis=ax,

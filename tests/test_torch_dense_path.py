@@ -237,7 +237,8 @@ def test_compile_plan_fuses_pairs_with_the_kernels(dense):
 
 
 def _run_both(case, **kw):
-    ex = PlanExecutor(case.params, case.net, prims=case.prims, m=1, device="cpu", **kw)
+    ex = PlanExecutor(case.params, case.net, prims=case.prims, m=1, tuned=None,
+                      device="cpu", **kw)
     jex = JaxExecutor(case.jparams, case.jnet, prims=case.prims, m=1, tuned=None,
                       use_pallas=False, **kw)
     return ex, jex
@@ -286,7 +287,7 @@ def test_tiled_apply_device_none_means_the_card(dense, monkeypatch):
 def test_served_dense_plan_matches_reference(dense):
     """Three requests through both engines; one tick mixes two requests."""
     eng = VolumeEngine(dense.params, dense.net, prims=dense.prims, m=1, batch=3,
-                       device="cpu")
+                       tuned=None, device="cpu")
     jeng = JaxEngine(dense.jparams, dense.jnet, prims=dense.prims, m=1, batch=3,
                      tuned=None, use_pallas=False)
     reqs = [VolumeRequest(i, v) for i, v in enumerate(dense.vols)]

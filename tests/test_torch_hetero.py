@@ -162,7 +162,7 @@ def test_hetero_executor_bitwise_equals_dense_and_reference():
     assert plan is not None and 0 < plan.theta < len(TOY.layers)
     params, jparams = both_params(TOY, 3)
     vol = _vol(plan.core, plan.fov, 0)
-    ex = PlanExecutor(params, TOY, plan, device="cpu")
+    ex = PlanExecutor(params, TOY, plan, tuned=None, device="cpu")
     assert ex.hetero and ex.theta == plan.theta
     assert ex.stage_devices == (torch.device("cpu"),) * 2
     got = ex.run(vol)
@@ -196,7 +196,7 @@ def test_pipeline2_equals_reference_run_pipeline(case):
         kw = jkw = dict(prims=W3_MIX, m=1, batch=2, theta=3)
         dkw = dict(prims=W3_MIX, m=1, batch=2)
     params, jparams = both_params(net, 4)
-    ex = PlanExecutor(params, net, device="cpu", **kw)
+    ex = PlanExecutor(params, net, tuned=None, device="cpu", **kw)
     assert ex.theta > 0 and not ex.hetero
     fov, core = net.field_of_view(), ex.core
     vol = _vol(core, fov, 1)

@@ -31,6 +31,10 @@ MODULES = (
     "repro_torch.launch.serve",
     "repro_torch.distributed",
     "repro_torch.serving.sharded_engine",
+    "repro_torch.tuning",
+    "repro_torch.tuning.autotune",
+    "repro_torch.core.distributed_inference",
+    "repro_torch.distributed.host_group",
 )
 
 

@@ -93,14 +93,15 @@ def _released(ex):
 def test_streamed_equals_dense_bitwise_and_reference(both, shape, batch):
     params, jparams = both
     vol = _vol(shape)
-    dense = PlanExecutor(params, NET, prims=MIX, m=1, batch=batch, device="cpu")
+    dense = PlanExecutor(params, NET, prims=MIX, m=1, batch=batch, tuned=None,
+                         device="cpu")
     out_d = dense.run(vol)
     peak_dense = dense.last_stats["peak_device_bytes"]
     stream_pred = planner.plan_stream_memory(NET, MIX, 1, shape, batch=batch).device_bytes
     assert stream_pred < peak_dense
     budget = (stream_pred + peak_dense) / 2
     stream = PlanExecutor(params, NET, prims=MIX, m=1, batch=batch,
-                          ram_budget=budget, device="cpu")
+                          ram_budget=budget, tuned=None, device="cpu")
     assert stream.streaming and stream.ram_budget == budget
     out_s = stream.run(vol)
     assert np.array_equal(out_d, out_s)

@@ -127,7 +127,7 @@ def test_executor_predict_counts_equal(net, jnet, m, batch, shape, deep):
     params = convnet.params_from_numpy(np_params, device="cpu")
     prims = _os_prims(net)
     ex = PlanExecutor(params, net, prims=prims, m=m, batch=batch, deep_reuse=deep,
-                      device="cpu")
+                      tuned=None, device="cpu")
     jex = JaxExecutor(jparams, jnet, prims=prims, m=m, batch=batch, deep_reuse=deep,
                       tuned=None)
     _same(ex.predict_counts(shape), jex.predict_counts(shape))

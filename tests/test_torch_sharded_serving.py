@@ -135,7 +135,7 @@ def references(both):
 def _run_fleet(params, vol, *, n_workers, batch=3, bucket=True, faults=None):
     eng = ShardedVolumeEngine(params, NET, prims=MIX, m=1, batch=batch,
                               n_workers=n_workers, bucket_shapes=bucket,
-                              fault_hooks=faults, device="cpu")
+                              fault_hooks=faults, tuned=None, device="cpu")
     strips = []
     req = VolumeRequest(0, vol)
     req.on_strip = lambda lo, hi, s: strips.append((lo, hi))

@@ -125,7 +125,7 @@ class Case:
         if key not in self._served:
             eng = VolumeEngine(
                 self.params, self.net, prims=self.prims, m=1, batch=3,
-                device="cpu", **kw,
+                tuned=None, device="cpu", **kw,
             )
             reqs = [VolumeRequest(i, v) for i, v in enumerate(self.vols)]
             for r in reqs:
@@ -220,7 +220,7 @@ def test_offline_sweep_counters_match_reference_and_prediction(
     case = cases[net]
     vol = case.vols[0]
     ex = PlanExecutor(case.params, case.net, prims=case.prims, m=1, batch=3,
-                      fuse_os=fuse_os, device="cpu")
+                      fuse_os=fuse_os, tuned=None, device="cpu")
     jex = JaxExecutor(case.jparams, case.jnet, prims=case.prims, m=1, batch=3,
                       fuse_os=fuse_os, tuned=None, use_pallas=False)
     out = ex.run(vol)
@@ -253,10 +253,11 @@ def test_device_none_means_the_card(cases, monkeypatch):
 
 
 def test_unported_modes_raise(cases):
-    """What is still unported raises, naming its ROADMAP item: a tuned
-    config other than "auto"/None (item 9).  A sweep axis other than the
-    executor's (item 6f) is ported: the per-run override runs and matches
-    the dense oracle."""
+    """Modes the port once lacked are ported.  A sweep axis other than the
+    executor's (item 6f): the per-run override runs and matches the dense
+    oracle.  A tuned value other than "auto", None or a ``TunedConfig``
+    (item 9), such as a config's key string: untuned, as in the
+    reference."""
     case = cases["bench-net"]
     ex = PlanExecutor(case.params, case.net, prims=case.prims, m=1, device="cpu")
     vol = case.vols[1]
@@ -264,9 +265,14 @@ def test_unported_modes_raise(cases):
     want = convnet.apply_dense_reference(case.params, case.net, torch.from_numpy(vol)[None])
     np.testing.assert_allclose(out, want[0].numpy(), **TOL)
     assert sorted(ex._axis_states) == [0, 1] and not ex._sweep_axes
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9"):
-        PlanExecutor(case.params, case.net, prims=case.prims, m=1,
-                     tuned="cpu__bench-net", device="cpu")
+    keyed = PlanExecutor(case.params, case.net, prims=case.prims, m=1,
+                         tuned="cpu__bench-net", device="cpu")
+    jkeyed = JaxExecutor(case.jparams, case.jnet, prims=case.prims, m=1,
+                         tuned="cpu__bench-net", use_pallas=False)
+    assert keyed.tuned is None and jkeyed.tuned is None
+    assert keyed.tuned_provenance() is None and jkeyed.tuned_provenance() is None
+    assert (keyed.batch, keyed.fuse_pairs, keyed.fuse_os) == (
+        jkeyed.batch, jkeyed.fuse_pairs, jkeyed.fuse_os)
 
 
 def test_streaming_executor_constructs(cases):
