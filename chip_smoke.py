@@ -10,7 +10,8 @@ Phases, in order; any failure makes the exit code non-zero:
 1. Print the card's name and power limit (``nvidia-smi``), then build the
    CUDA kernels from ``src/repro_torch/csrc`` and print the build time and
    ptxas's registers, shared memory and spills of the MAD's, the segment
-   conv's, the pool's, the direct conv's and decode attention's kernels.
+   conv's, the pool's, the direct conv's and decode attention's kernels,
+   and of the two backward kernels (``conv3d_wgrad``, ``mpf_pool_bwd``).
 2. Hold each CUDA kernel of the reuse path against its plain PyTorch
    version on the card, at the shapes the served n337 plan gives it (read
    off the compiled plan), with the tolerance printed beside it; time
@@ -95,11 +96,48 @@ Phases, in order; any failure makes the exit code non-zero:
    sub-layer shapes with f' split in two (against the one-shot conv) and
    ``halo_sharded_apply`` with ``direct`` prims on a pool-free two-conv
    net of 80 maps (against ``apply_plan``), each rank printing seconds
-   and the bytes it exchanged through pinned host memory.
+   and the bytes it exchanged through pinned host memory; last, the
+   training collectives (``ring_allgather_matmul``, ``all_gather_chunked``,
+   ``psum_compressed`` once and 30 times with error feedback,
+   ``reduce_scatter_mean``) on card tensors, each against its one-process
+   math.
 5. The plain-pool path: ``tiled_apply`` on ``bench-net`` with the
    ``use_mpf=False`` plan's primitives (P=4: 64 shifted passes a patch),
    held against the dense oracle.
-6. The LM serving path, after the ZNNi phases' memory is freed:
+6. Training on the card (``run_train``), after the ZNNi phases' memory is
+   freed:
+   a. The backward kernels against their plain versions: the input
+      gradient (through the ``conv3d`` kernel) and ``conv3d_wgrad``
+      against the plain autograd of ``ref.conv3d`` at n337's training
+      shapes (layers 0, 2, 4, 6, 9), bitwise repeatable, then at 14 ragged
+      shapes; ``mpf_pool_bwd`` at layers 1, 3, 5 on tie-free inputs,
+      bitwise equal to its plain version and within ``GRAD_TOL`` of the
+      plain pool's autograd, then at ragged shapes; each timed beside its
+      bound, its plain version and cuDNN's ``conv3d_weight`` /
+      ``conv3d_input`` (TF32 off), and the forward ``conv3d`` at the same
+      shapes beside cuDNN's ``conv3d``.
+   b. Full-width n337 (80 maps, 10 layers, ``direct``/``mpf``, random
+      weights from seed 0) takes five AdamW steps at m = 2 (input 100³),
+      batch 2, on ``SyntheticVolumePipeline`` batches and the example's
+      labels, with the launch counts zeroed just before and read just
+      after; each step's loss held against the plain versions at the same
+      params (within ``LOSS_RTOL``), and step 1's parameter gradients
+      (every one present, within ``GRAD_TOL``); the later steps' gradient
+      errors are printed.  Then the plain versions' own five steps from
+      the same initial params: step 1 held the same way, the later steps'
+      losses printed beside the kernel run's.  Each
+      step's host and device time, the allocator peak, the bytes held for
+      the backward and each kernel's launches a step are printed; then one
+      step each with bf16 and int8 moments, and one step under
+      ``torch.profiler``.
+   c. A checkpoint written (async) after step 3 is restored into fresh
+      objects and steps 4–5 rerun: losses, params and optimizer state
+      bitwise equal to the uninterrupted run.
+   d. The ``seg-net`` example's 200 steps; its loss must fall.
+   e. ``quickstart``, ``serve_volume`` and ``pipeline_inference`` (its
+      two ranks) on the card.
+7. The LM serving path, after the ZNNi and training phases' memory is
+   freed:
    a. ``decode_attn`` against its plain version at the served shapes
       (B 8, S 2048, Hkv 8, G 5, d 128, bf16, one length above S), in f32,
       on a ragged S=600, on one 2048-row sequence, and with lengths on,
@@ -115,7 +153,9 @@ Phases, in order; any failure makes the exit code non-zero:
       in a plain ``forward`` (chunked attention, no decode kernel) of
       prompt + generated tokens, and one ``decode_step`` on a fixed cache
       with the kernel against one with the plain version.
-7. Print the kernels' JSON line, then, as the last line,
+8. Print the kernels' JSON line (ten entries: the eight Pallas
+   counterparts, then ``conv3d_wgrad`` and ``mpf_pool_bwd`` with
+   ``replaces`` null), then, as the last line,
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -127,6 +167,7 @@ import os
 import subprocess
 import sys
 import time
+import traceback
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
@@ -154,6 +195,9 @@ KERNELS = {
                "src/repro/kernels/direct_conv3d/kernel.py:52"),
     "decode_attn": ("src/repro_torch/csrc/decode_attn.cu",
                     "src/repro/kernels/decode_attn/kernel.py:61"),
+    # the backward kernels of the training path; no Pallas kernel has one
+    "conv3d_wgrad": ("src/repro_torch/csrc/conv3d_wgrad.cu", None),
+    "mpf_pool_bwd": ("src/repro_torch/csrc/mpf_pool.cu", None),
 }
 # kernels each serving mode must launch (cmul_mad_bias only serves the
 # fused conv+pool pairs: fuse_os on the reuse path, fuse_pairs on the
@@ -170,6 +214,9 @@ REACHED = {
                   "cmul_mad", "mpf_pool"),
     "sublayer": ("cmul_mad",),
     "lm": ("decode_attn",),
+    # a training step: the direct conv forward and for the input gradient,
+    # the weight gradient, the pool and its gradient
+    "train": ("conv3d", "conv3d_wgrad", "mpf_pool", "mpf_pool_bwd"),
 }
 # end-to-end tolerance of the reference's volume tests
 E2E = dict(atol=1e-3, rtol=1e-4)
@@ -1551,6 +1598,9 @@ def run_distributed(smoke, device, net, params, vol, want, one_proc, one_proc_s,
             smoke.check(x["ok"], f"distributed {label} rank {r} vs its one-process "
                                  f"counterpart: max_abs_err {x['max_abs_err']:.3e} "
                                  f"(atol {E2E['atol']}, rtol {E2E['rtol']})")
+        for name, x in row["collectives"].items():
+            smoke.check(x["ok"], f"distributed {name} rank {r} vs its one-process math: "
+                                 f"max_abs_err {x['max_abs_err']:.3e} ({x['tol']})")
     return {f"rank {r}": row for r, row in enumerate(res)}
 
 
@@ -1665,11 +1715,70 @@ def rank_main(rank: int, world: int, port: int, work: str) -> int:
                   f"{r['received']} B through pinned host memory; max_memory_allocated "
                   f"{r['max_memory_allocated']}; launches {json.dumps(r['launches'])}",
                   flush=True)
+        dist.barrier()
+        rows["collectives"] = rank_collectives(rank, world, device)
     finally:
         dist.destroy_process_group()
     with open(os.path.join(work, f"rank{rank}.json"), "w") as fh:
         json.dump(rows, fh)
     return 0
+
+
+def rank_collectives(rank: int, world: int, device):
+    """The training collectives on card tensors in one rank, each against
+    its one-process math: every rank draws every rank's inputs from one
+    seed, so it knows what the others hold."""
+    import torch
+
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed import host_group
+
+    g = torch.Generator().manual_seed(14)
+    K, N = 1024, 512
+    x = torch.randn((64, K), generator=g).to(device)
+    w = torch.randn((K, N), generator=g).to(device)
+    shards = [torch.randn((8, 1024), generator=g).to(device) for _ in range(world)]
+    grads = [torch.randn((4096,), generator=g).to(device) for _ in range(world)]
+
+    def deq(v):  # the reference's int8 absmax round trip
+        scale = torch.clamp(v.abs().max(), min=1e-12) / 127.0
+        return torch.clamp(torch.round(v / scale), -127, 127).to(torch.int8).float() * scale
+
+    out = {}
+
+    def record(name, got, want, exact=False, **tol):
+        err = float((got - want).abs().max())
+        ok = torch.equal(got, want) if exact else _close(got, want, **tol)[0]
+        out[name] = dict(ok=bool(ok), max_abs_err=err, tol="bitwise" if exact else tol)
+
+    host_group.reset_exchanged_bytes()
+    t = time.perf_counter()
+    k = K // world
+    record("ring_allgather_matmul",
+           coll.ring_allgather_matmul(x, w[rank * k:(rank + 1) * k].contiguous()), x @ w,
+           atol=1e-3, rtol=1e-4)
+    record("all_gather_chunked", coll.all_gather_chunked(shards[rank]), torch.cat(shards),
+           exact=True)
+    mean, err = coll.psum_compressed(grads[rank])
+    want = deq(grads[0])
+    for r in range(1, world):
+        want = want + deq(grads[r])
+    record("psum_compressed", mean, want / world, exact=True)
+    record("psum_compressed error", err, grads[rank] - deq(grads[rank]), exact=True)
+    e, acc = torch.zeros_like(grads[rank]), torch.zeros_like(grads[rank])
+    for _ in range(30):  # error feedback: the running mean converges
+        m, e = coll.psum_compressed(grads[rank], error=e)
+        acc = acc + m
+    record("psum_compressed 30 steps", acc / 30, sum(grads) / world, atol=1e-2, rtol=0.0)
+    record("reduce_scatter_mean", coll.reduce_scatter_mean(shards[rank]),
+           sum(shards).chunk(world)[rank] / world, atol=0.0, rtol=1e-6)
+    _sync(device)
+    secs = time.perf_counter() - t
+    print(f"collectives: {secs:.3f} s, {json.dumps(host_group.exchanged_bytes())} B "
+          f"through pinned host memory; " + "; ".join(
+              f"{k_} ok {v['ok']} max_abs_err {v['max_abs_err']:.3e}" for k_, v in out.items()),
+          flush=True)
+    return out
 
 
 def run_sublayers(smoke, device, plan, params, gen, launches, serving):
@@ -2032,7 +2141,7 @@ def check_lm(smoke, device, model, params, engine, reqs):
 
 def run_lm(device, cfg, *, da_cases, slots, max_seq, n_requests, prompt_range, new_range,
            seed=0):
-    """Phase 6: the LM serving path; returns (decode_attn result, failures)."""
+    """Phase 7: the LM serving path; returns (decode_attn result, failures)."""
     import torch
 
     from repro_torch.layers.dot import f32_accumulation
@@ -2079,6 +2188,435 @@ def run_lm(device, cfg, *, da_cases, slots, max_seq, n_requests, prompt_range, n
     stats.update(check_lm(smoke, device, model, params, engine, reqs))
     print("serving lm: " + json.dumps(stats), flush=True)
     return result, smoke.failures
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: training on the card
+
+# full-width n337 (80 maps, 10 layers) trained at m = 2 (input 100³),
+# batch 2, with direct convs and mpf pools: the reference example's
+# primitives (examples/train_segmentation.py); AdamW at its default lr
+# (3e-4): at 1e-3 step 2's loss rose 7-fold over step 1's
+TRAIN = dict(m=2, batch=2, steps=5, save_after=3, lr=3e-4, seg_steps=200)
+# a gradient kernel against its plain version: atol 1e-4 of the plain
+# result's largest magnitude, rtol 1e-4 (sums of up to 1.9 M fp32 products
+# in another order; the small entries of a gradient are sums that cancel,
+# so the scale is the tensor's largest entry); the losses of the kernel
+# and the plain runs at rtol 1e-4, the reference's end-to-end rtol
+GRAD_TOL = 1e-4
+LOSS_RTOL = 1e-4
+# (label, S, f, f', n, k) of n337's convs at the training shapes: the
+# input gradient runs through the conv3d kernel, the weight gradient
+# through conv3d_wgrad; layers 7 and 8 repeat layer 6's kind
+TRAIN_CONVS = (("layer 0", 2, 1, 80, 100, 2), ("layer 2", 16, 80, 80, 49, 3),
+               ("layer 4", 128, 80, 80, 23, 3), ("layer 6", 1024, 80, 80, 10, 3),
+               ("layer 9", 1024, 80, 3, 4, 3))
+# (label, S, f, n) of n337's pools at the training shapes, p = 2
+TRAIN_POOLS = (("layer 1", 2, 80, 99), ("layer 3", 16, 80, 47), ("layer 5", 128, 80, 21))
+# ragged shapes (S, f, f', n, k): no multiple of any tile, k up to n926's 9
+RAGGED_GRAD = (
+    (1, 1, 1, (5, 5, 5), (1, 1, 1)), (2, 3, 5, (9, 11, 13), (3, 2, 4)),
+    (3, 5, 7, (17, 17, 17), (3, 3, 3)), (1, 7, 9, (6, 20, 33), (2, 3, 5)),
+    (4, 2, 13, (10, 9, 8), (4, 4, 4)), (2, 9, 3, (12, 7, 5), (5, 3, 2)),
+    (5, 16, 16, (11, 11, 11), (3, 3, 3)), (1, 4, 6, (30, 4, 9), (2, 1, 3)),
+    (3, 6, 1, (8, 8, 40), (3, 3, 3)), (2, 1, 20, (15, 14, 13), (2, 2, 2)),
+    (7, 12, 5, (7, 7, 7), (7, 7, 7)), (1, 33, 17, (9, 10, 11), (3, 3, 3)),
+    (1, 3, 4, (12, 12, 12), (9, 9, 9)), (9, 80, 80, (8, 9, 10), (3, 3, 3)),
+)
+RAGGED_POOL = ((2, 3, (7, 9, 5), 2), (1, 5, (11, 11, 11), 3), (3, 4, (9, 5, 7), 2),
+               (1, 2, (8, 5, 11), 3), (5, 80, (13, 15, 17), 2))
+
+
+def tie_free(shape, device, gen):
+    """Values distinct inside every pooling window: a random permutation of
+    2^22 levels repeated along the flat index (two voxels of one window lie
+    closer than 2^22 apart there), so each window has one maximum."""
+    import torch
+
+    n, levels = math.prod(shape), 1 << 22
+    perm = torch.randperm(levels, device=device, generator=gen)
+    return (perm[torch.arange(n, device=device) % levels].to(torch.float32)
+            / levels).reshape(shape)
+
+
+def _grad_close(smoke, label, got, want):
+    import torch
+
+    scale = float(want.abs().max())
+    ok, err = _close(got, want, atol=GRAD_TOL * scale, rtol=GRAD_TOL)
+    smoke.check(ok and bool(torch.isfinite(got).all()),
+                f"{label}: max_abs_err {err:.3e} (atol {GRAD_TOL} x max|plain| = "
+                f"{GRAD_TOL * scale:.3e}, rtol {GRAD_TOL})")
+    return err
+
+
+def check_grad_kernels(smoke, device, gen, convs=TRAIN_CONVS, pools=TRAIN_POOLS,
+                       ragged_grad=RAGGED_GRAD, ragged_pool=RAGGED_POOL):
+    """Phase 6a: the input gradient (through ``conv3d``) and ``conv3d_wgrad``
+    against the plain autograd of ``ref.conv3d`` at n337's training shapes,
+    then ``mpf_pool_bwd`` against its plain version on tie-free inputs,
+    each timed beside its bound and cuDNN's (the forward ``conv3d`` too,
+    timed at the same shapes); then ragged shapes.  Returns
+    the kernels line's entries (layer 2's conv, layer 1's pool)."""
+    import torch
+
+    from repro_torch.kernels.direct_conv3d import ops as cops
+    from repro_torch.kernels.direct_conv3d import ref as cref
+    from repro_torch.kernels.mpf_pool import ops as mops
+    from repro_torch.kernels.mpf_pool import ref as mref
+
+    results = {}
+    errs = []
+    for label, S, f, fp, n, k in convs:
+        k3 = (k,) * 3
+        x = torch.randn((S, f, n, n, n), device=device, generator=gen)
+        w = torch.randn((fp, f) + k3, device=device, generator=gen) * (2.0 / (f * k**3)) ** 0.5
+        npn = n - k + 1
+        g = torch.randn((S, fp, npn, npn, npn), device=device, generator=gen)
+        xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        with torch.enable_grad():
+            out = cref.conv3d(xr, wr)
+        dx_p, dw_p = torch.autograd.grad(out, (xr, wr), g)
+        del out, xr, wr
+        dx = cops.conv3d_dgrad(g, w)
+        dw = cops.conv3d_wgrad(x, g, k3)
+        shapes = f"x {tuple(x.shape)} w {tuple(w.shape)}"
+        e_dx = _grad_close(smoke, f"conv3d input gradient ({label}), {shapes}", dx, dx_p)
+        e_dw = _grad_close(smoke, f"conv3d_wgrad ({label}), {shapes}", dw, dw_p)
+        smoke.check(torch.equal(dw, cops.conv3d_wgrad(x, g, k3)),
+                    f"conv3d_wgrad ({label}): a second call is bitwise equal")
+        errs.append(e_dw)
+        del dx_p, dw_p
+        flops = 2.0 * S * fp * f * k**3 * npn**3
+        rows = {}
+        for name, fn, plain, lib, nbytes in (
+                ("conv3d_wgrad", lambda: cops.conv3d_wgrad(x, g, k3),
+                 lambda: cref.conv3d_wgrad(x, g, k3),
+                 lambda: torch.nn.grad.conv3d_weight(x, w.shape, g), _nb(x) + _nb(g) + _nb(w)),
+                ("input gradient", lambda: cops.conv3d_dgrad(g, w),
+                 lambda: cref.conv3d_dgrad(g, w),
+                 lambda: torch.nn.grad.conv3d_input(x.shape, w, g), _nb(g) + _nb(w) + _nb(x)),
+                ("conv3d forward", lambda: cops.conv3d(x, w), lambda: cref.conv3d(x, w),
+                 lambda: torch.nn.functional.conv3d(x, w), _nb(x) + _nb(w) + _nb(g))):
+            ms = time_ms(fn, device)
+            plain_ms = time_ms(plain, device, reps=2)
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                lib_ms = time_ms(lib, device)
+            b_ms, b_by = bound(nbytes, flops)
+            rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                              bound_by=b_by)
+            print(f"kernel {name} ({label}, {shapes}): {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                  f"cuDNN (TF32 off) {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}; "
+                  f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e9:.3f} GB), "
+                  f"{100 * b_ms / ms:.1f}% of bound", flush=True)
+        if label == convs[min(1, len(convs) - 1)][0]:
+            results["conv3d_wgrad"] = dict(rows["conv3d_wgrad"])
+            results["conv3d input gradient"] = dict(rows["input gradient"], max_abs_err=e_dx)
+        del x, w, g, dx, dw
+        _free(device)
+    results["conv3d_wgrad"]["max_abs_err"] = max(errs)
+
+    for S, f, fp, n, k in ragged_grad:
+        x = torch.randn((S, f) + n, device=device, generator=gen)
+        w = torch.randn((fp, f) + k, device=device, generator=gen)
+        g = torch.randn((S, fp) + tuple(a - b + 1 for a, b in zip(n, k)), device=device,
+                        generator=gen)
+        shapes = f"x {tuple(x.shape)} w {tuple(w.shape)}"
+        _grad_close(smoke, f"conv3d input gradient (ragged), {shapes}",
+                    cops.conv3d_dgrad(g, w), cref.conv3d_dgrad(g, w))
+        _grad_close(smoke, f"conv3d_wgrad (ragged), {shapes}",
+                    cops.conv3d_wgrad(x, g, k), cref.conv3d_wgrad(x, g, k))
+
+    pool_errs = []
+    for label, S, f, n in pools:
+        x = tie_free((S, f, n, n, n), device, gen)
+        gy = torch.randn((S * 8, f) + (n // 2,) * 3, device=device, generator=gen)
+        gx = mops.mpf_pool_bwd(x, gy, 2)
+        want = mref.mpf_pool_bwd(x, gy, 2)
+        xa = x.clone().requires_grad_(True)
+        with torch.enable_grad():
+            ya = mref.mpf_pool(xa, 2)
+        (ga,) = torch.autograd.grad(ya, xa, gy)
+        del xa, ya
+        err = float((gx - want).abs().max())
+        pool_errs.append(err)
+        smoke.check(torch.equal(gx, want),
+                    f"mpf_pool_bwd ({label}), x {tuple(x.shape)}: bitwise equal to its plain "
+                    f"version (max_abs_err {err:.3e})")
+        _grad_close(smoke, f"mpf_pool_bwd ({label}) vs the autograd of the plain pool "
+                           "(tie-free input)", gx, ga)
+        ms = time_ms(lambda: mops.mpf_pool_bwd(x, gy, 2), device)
+        plain_ms = time_ms(lambda: mref.mpf_pool_bwd(x, gy, 2), device, reps=2)
+        b_ms, b_by = bound(_nb(x) + _nb(gy) + _nb(gx), 0.0)
+        print(f"kernel mpf_pool_bwd ({label}, x {tuple(x.shape)}, p 2): {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), {100 * b_ms / ms:.1f}% of "
+              "bound; no PyTorch call gives every fragment's gradient", flush=True)
+        if label == pools[0][0]:
+            results["mpf_pool_bwd"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                                           bound_ms=b_ms, bound_by=b_by)
+        del x, gy, gx, want, ga
+        _free(device)
+    for S, f, n, p in ragged_pool:
+        x = tie_free((S, f) + n, device, gen)
+        gy = torch.randn((S * p**3, f) + tuple(a // p for a in n), device=device,
+                         generator=gen)
+        got, want = mops.mpf_pool_bwd(x, gy, p), mref.mpf_pool_bwd(x, gy, p)
+        err = float((got - want).abs().max())
+        pool_errs.append(err)
+        smoke.check(torch.equal(got, want), f"mpf_pool_bwd (ragged), x {tuple(x.shape)}, "
+                                            f"p {p}: bitwise equal (max_abs_err {err:.3e})")
+    results["mpf_pool_bwd"]["max_abs_err"] = max(pool_errs)
+    return results
+
+
+def _leaves_close(smoke, label, got, want):
+    from repro_torch.optim import tree
+
+    gl, wl = tree.leaves(got), tree.leaves(want)
+    smoke.check(len(gl) == len(wl) == 14 and all(g is not None for g in gl),
+                f"{label}: {len(gl)} parameter gradients, every one present (7 convs' w and b)")
+    return max(_grad_close(smoke, f"{label}, leaf {i} {tuple(g.shape)}", g, w)
+               for i, (g, w) in enumerate(zip(gl, wl)))
+
+
+def _clone(t):
+    from repro_torch.optim import tree
+
+    return tree.unflatten(t, [x.clone() for x in tree.leaves(t)])
+
+
+def train_n337(smoke, device, net, counts, train=TRAIN):
+    """Phase 6b–c: full-width n337 takes AdamW steps through the kernels,
+    each step's loss and gradients held against the plain versions at the
+    same params; then the plain versions' own run from the same initial
+    params; a checkpoint after step 3 is restored into fresh objects and
+    steps 4–5 rerun, bitwise; one step each with bf16 and int8 moments."""
+    import tempfile
+
+    import torch
+
+    from repro_torch import checkpoint as ckpt
+    from repro_torch import kernels
+    from repro_torch.core import convnet
+    from repro_torch.data import SyntheticVolumePipeline, VolumePipelineConfig
+    from repro_torch.examples.train_segmentation import labels_of, loss_and_grads, train_step
+    from repro_torch.optim import AdamWConfig, QTensor, apply_updates, init_state, tree
+
+    cuda = device.type == "cuda"
+    n_in = net.valid_input_size(train["m"])
+    fov = net.field_of_view()
+    n_out = n_in - fov + 1
+    prims = ["direct" if l.kind == "conv" else "mpf" for l in net.layers]
+    pipe = SyntheticVolumePipeline(VolumePipelineConfig(patch=n_in, batch=train["batch"]))
+    batches = []
+    for s in range(train["steps"]):
+        x = torch.from_numpy(pipe.batch_at(s)).to(device)
+        batches.append((x, labels_of(x, fov, n_out)))
+    cfg = AdamWConfig(lr=train["lr"])
+    params0 = convnet.init_params(net, torch.Generator().manual_seed(0), device=device)
+    print(f"train: {net.name}, {sum(t.numel() for t in tree.leaves(params0))} parameters, "
+          f"input {tuple(batches[0][0].shape)}, dense output {(train['batch'], 3) + (n_out,) * 3}, "
+          f"prims {prims}, AdamW lr {cfg.lr}", flush=True)
+
+    # the bytes autograd holds for the backward: one forward, loss kept
+    _free(device)
+    base = torch.cuda.memory_allocated(device) if cuda else 0
+    leaves = [p.detach().requires_grad_(True) for p in tree.leaves(params0)]
+    with torch.enable_grad():
+        loss = convnet.apply_plan(tree.unflatten(params0, leaves), net, batches[0][0],
+                                  prims).sum()
+    saved = torch.cuda.memory_allocated(device) - base if cuda else 0
+    del loss, leaves
+    print(f"train: {saved} B held for the backward after one forward "
+          f"(the saved activations)", flush=True)
+
+    def run(params, opt, steps, use_kernels, work=None, against_plain=False):
+        """Steps ``steps`` from (params, opt); with ``against_plain`` each
+        step's loss is held against the plain versions at the same params
+        (outside the timed step), and so are step 1's gradients; later
+        steps' gradient errors are printed."""
+        losses, grads0, host, dev_ms, th, peak = [], None, [], [], None, 0
+        for s in steps:
+            if cuda:
+                ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                torch.cuda.reset_peak_memory_stats(device)
+            _sync(device)
+            t = time.perf_counter()
+            if cuda:
+                ev0.record()
+            before = params
+            loss, grads = loss_and_grads(params, net, prims, *batches[s],
+                                         use_kernels=use_kernels)
+            params, opt = apply_updates(params, grads, opt, cfg)
+            if cuda:
+                ev1.record()
+            _sync(device)
+            host.append((time.perf_counter() - t) * 1e3)
+            dev_ms.append(ev0.elapsed_time(ev1) if cuda else float("nan"))
+            peak = max(peak, torch.cuda.max_memory_allocated(device) if cuda else 0)
+            losses.append(loss)
+            if grads0 is None:
+                grads0 = grads
+            if work is not None and s + 1 == train["save_after"]:
+                th = ckpt.save(work, s + 1, {"params": params, "opt": opt}, async_=True)
+            if against_plain:
+                lp, gp = loss_and_grads(before, net, prims, *batches[s], use_kernels=False)
+                a, b = float(loss), float(lp)
+                smoke.check(abs(a - b) <= LOSS_RTOL * abs(b) and math.isfinite(a),
+                            f"train step {s + 1}: loss {a:.7f} (kernels) vs {b:.7f} (plain, "
+                            f"same params), rtol {LOSS_RTOL}")
+                label = f"train step {s + 1} gradients (kernels vs plain, same params)"
+                if s == steps[0]:
+                    _leaves_close(smoke, label, grads, gp)
+                else:
+                    print(f"{label}: max_abs_err / max|plain| by leaf " + ", ".join(
+                        f"{float((g - w).abs().max()) / float(w.abs().max()):.2e}"
+                        for g, w in zip(tree.leaves(grads), tree.leaves(gp))), flush=True)
+                del lp, gp
+        return params, opt, losses, grads0, host, dev_ms, th, peak
+
+    steps = list(range(train["steps"]))
+    with tempfile.TemporaryDirectory() as work:
+        _free(device)
+        kernels.reset_launch_counts()
+        pk, ok_, lk, gk, host, dev_ms, th, peak = run(
+            _clone(params0), init_state(params0, cfg), steps, None, work, against_plain=True)
+        train_counts = kernels.launch_counts()
+        th.join()
+        for name, c in train_counts.items():
+            counts[name] = counts.get(name, 0) + c
+        per_step = {k: v // len(steps) for k, v in train_counts.items() if v}
+        for s, (l, h, d) in enumerate(zip(lk, host, dev_ms)):
+            print(f"train step {s + 1} (kernels): bce {float(l):.6f}, {h:.3f} ms host, "
+                  f"{d:.3f} ms device", flush=True)
+        print(f"train: kernel launches a step {json.dumps(per_step)}; allocator peak "
+              f"{peak} B in the kernel run's steps", flush=True)
+        for name in REACHED["train"]:
+            smoke.check(train_counts.get(name, 0) > 0,
+                        f"train: {name} launched {train_counts.get(name, 0)} times in "
+                        f"{len(steps)} steps")
+
+        _free(device)
+        # the plain versions' own run from the same params: step 1 is the
+        # same function at the same params; from step 2 on the two runs'
+        # params differ (Adam moves a parameter whose gradient is near 0 by
+        # about lr whichever its sign), so those steps are reported
+        pp, op, lp, gp, host_p, dev_p, _, peak_p = run(_clone(params0), init_state(params0, cfg),
+                                                       steps, False)
+        print(f"train: plain run {[round(h, 3) for h in host_p]} ms host a step, "
+              f"allocator peak {peak_p} B", flush=True)
+        a, b = float(lk[0]), float(lp[0])
+        smoke.check(abs(a - b) <= LOSS_RTOL * abs(b),
+                    f"train step 1: loss {a:.7f} (kernels) vs {b:.7f} (the plain run), "
+                    f"rtol {LOSS_RTOL}")
+        grad_err = _leaves_close(smoke, "train step 1 gradients (kernels vs the plain run)",
+                                 gk, gp)
+        for s, (a, b) in enumerate(zip(lk, lp)):
+            print(f"train step {s + 1}: loss {float(a):.7f} (kernel run) vs {float(b):.7f} "
+                  f"(plain run), relative difference {abs(float(a) - float(b)) / abs(float(b)):.3e}",
+                  flush=True)
+        del pp, op, gp
+        _free(device)
+
+        # (c) resume from the checkpoint of step 3 into fresh objects
+        fresh = convnet.init_params(net, torch.Generator().manual_seed(1), device=device)
+        back = ckpt.restore(work, train["save_after"],
+                            {"params": fresh, "opt": init_state(fresh, cfg)}, device=device)
+        smoke.check(ckpt.latest_step(work) == train["save_after"],
+                    f"train: checkpoint of step {train['save_after']} written (async)")
+        pr, orr, lr_, _, _, _, _, _ = run(back["params"], back["opt"],
+                                          steps[train["save_after"]:], None)
+        same_loss = all(torch.equal(a, b) for a, b in zip(lr_, lk[train["save_after"]:]))
+        same_p = all(torch.equal(a, b) for a, b in zip(tree.leaves(pr), tree.leaves(pk)))
+        same_o = all(torch.equal(a, b) for a, b in zip(tree.leaves(orr), tree.leaves(ok_)))
+        smoke.check(same_loss and same_p and same_o,
+                    f"train resume: steps {train['save_after'] + 1}-{train['steps']} from the "
+                    f"checkpoint bitwise equal to the uninterrupted run (losses {same_loss}, "
+                    f"params {same_p}, optimizer state {same_o})")
+        del pr, orr, back, fresh
+
+    # one step with each low-precision moment state
+    for dtype in ("bfloat16", "int8"):
+        c = AdamWConfig(lr=train["lr"], state_dtype=dtype)
+        p1, o1, l1, _ = train_step(_clone(params0), init_state(params0, c), net, prims,
+                                   *batches[0], c)
+        moved = max(float((a - b).abs().max())
+                    for a, b in zip(tree.leaves(p1), tree.leaves(params0)))
+        # Adam's first step moves a parameter by lr * (|m̂|/(sqrt(v̂)+eps) + wd |p|)
+        limit = 1.01 * c.lr * (1 + c.weight_decay * max(
+            float(t.abs().max()) for t in tree.leaves(params0)))
+        kinds = {type(t).__name__ if isinstance(t, QTensor) else str(t.dtype)
+                 for t in tree.leaves(o1["m"], is_leaf=lambda t: isinstance(t, QTensor))}
+        smoke.check(torch.equal(l1, lk[0]) and moved <= limit and all(
+            bool(torch.isfinite(t).all()) for t in tree.leaves(p1)),
+                    f"train step 1 with {dtype} moments ({sorted(kinds)}): loss equal to the "
+                    f"f32 run's, largest parameter move {moved:.3e} <= {limit:.3e}")
+        del p1, o1
+
+    # one step under the profiler: device time by kernel
+    wall, busy, rows = device_profile(
+        lambda: train_step(_clone(params0), init_state(params0, cfg), net, prims,
+                           *batches[0], cfg),
+        device, "one n337 training step (kernels)", top=16)
+    return dict(losses=[float(v) for v in lk], plain_losses=[float(v) for v in lp],
+                host_ms=host, device_ms=dev_ms, plain_host_ms=host_p, plain_device_ms=dev_p,
+                launches_per_step=per_step, allocator_peak=peak, plain_allocator_peak=peak_p,
+                saved_bytes=saved,
+                step1_grad_max_abs_err=grad_err, profiled_wall_ms=wall * 1e3,
+                profiled_busy_ms=busy * 1e3)
+
+
+def run_examples(smoke, device, seg_steps=TRAIN["seg_steps"]):
+    """Phase 6d–e: the seg-net example's 200 steps, then quickstart,
+    serve_volume and pipeline_inference (its two ranks), on the card."""
+    import numpy as np
+
+    from repro_torch.examples import pipeline_inference, quickstart, serve_volume
+    from repro_torch.examples import train_segmentation
+
+    t = time.perf_counter()
+    losses = train_segmentation.train(seg_steps, 1e-3, device,
+                                      log=lambda s: print(f"seg-net: {s}", flush=True))
+    first, last = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    smoke.check(last < first, f"seg-net: {seg_steps} steps in "
+                              f"{time.perf_counter() - t:.1f} s, first-10 mean {first:.4f} -> "
+                              f"last-10 mean {last:.4f}")
+    argv = [] if device.type == "cuda" else ["--device", str(device)]
+    for name, fn in (("quickstart", lambda: quickstart.main(argv)),
+                     ("serve_volume", lambda: serve_volume.main(argv)),
+                     ("pipeline_inference", lambda: pipeline_inference.main(argv))):
+        t = time.perf_counter()
+        try:
+            fn()
+            ok, why = True, ""
+        except (Exception, SystemExit) as exc:  # recorded as a failed check
+            traceback.print_exc()
+            ok, why = False, f": {type(exc).__name__}: {exc}"
+        smoke.check(ok, f"example {name} on the card: {time.perf_counter() - t:.1f} s{why}")
+    return dict(seg_first10=first, seg_last10=last, seg_losses=losses[::25])
+
+
+def run_train(device, net, seed=0, *, train=TRAIN, **shapes):
+    """Phase 6: returns (kernel results, launch counts, failures).
+    ``shapes`` overrides ``check_grad_kernels``'s shape lists (a CPU
+    rehearsal passes small ones with a narrow net)."""
+    import torch
+
+    smoke = Smoke()
+    gen = torch.Generator(device=device).manual_seed(seed + 4)
+    t = time.perf_counter()
+    results = check_grad_kernels(smoke, device, gen, **shapes)
+    print(f"train: gradient kernels checked in {time.perf_counter() - t:.1f} s", flush=True)
+    counts = {}
+    t = time.perf_counter()
+    stats = train_n337(smoke, device, net, counts, train)
+    print(f"train: n337 phase {time.perf_counter() - t:.1f} s", flush=True)
+    _free(device)
+    t = time.perf_counter()
+    stats.update(run_examples(smoke, device, train["seg_steps"]))
+    print(f"train: examples {time.perf_counter() - t:.1f} s", flush=True)
+    print("training: " + json.dumps(stats), flush=True)
+    return results, counts, smoke.failures
 
 
 def run(device, net, m: int, batch: int, hw, seed: int = 0, *, dense_m: int,
@@ -2212,7 +2750,7 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t:.1f} s", flush=True)
     names = ("cmul_mad_kernel", "axis_product", "short_axis", "rows_gemm",
              "mpf_pool_kernel", "conv3d_plane", "conv3d_column", "decode_attn_chunk",
-             "decode_attn_combine")
+             "decode_attn_combine", "conv3d_wgrad", "mpf_pool_bwd")
     for entry, usage in build.ptxas_usage(names):
         # from the kernel's name on: its template arguments, mangled
         name = entry[min(entry.find(n) for n in names if n in entry):]
@@ -2221,6 +2759,15 @@ def main() -> int:
     device = torch.device("cuda", 0)
     results, failures = run(device, N337, m=4, batch=2, hw=H100_SXM, dense_m=8,
                             plain_net=BENCH_NET)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    train_results, train_counts, train_failures = run_train(device, N337)
+    failures += train_failures
+    for name in KERNELS:
+        r = results.setdefault(name, {})
+        r.update(train_results.get(name, {}))
+        r["launches"] = r.get("launches", 0) + train_counts.get(name, 0)
+    print(f"train phase: {time.perf_counter() - t:.1f} s", flush=True)
     torch.cuda.empty_cache()
     t = time.perf_counter()
     results["decode_attn"], lm_failures = run_lm(

@@ -195,3 +195,167 @@ extern "C" int mpf_pool_f32(const float* x, float* out, int S, int f, int nx,
   return launch<0>(x, out, S, f, nx, ny, nz, p, mx, my, mz, ty_n, tz_n, nxc, nyt,
                    nzt, blocks, smem, st);
 }
+
+// ---------------------------------------------------------------------------
+// mpf_pool_bwd: the gradient of mpf_pool with respect to x.
+//
+// No Pallas kernel has a backward: the reference takes this gradient from
+// JAX's autodiff of its pool.  The port's forward is hand-written, so its
+// backward is too.
+//
+//   gx[s, c, u] = sum over the fragments o whose window (o, v) holds u and
+//                 whose first maximum in tap order lies at u of
+//                 gy[s*p^3 + o, c, v]
+//
+// Gather form: a thread owns one input voxel u.  On each axis u lies in
+// one window of each fragment o (v = (u - o) / p, where 0 <= v < m), so
+// it visits at most p^3 windows, recomputes each one's argmax (the first
+// maximum in tap order d = (dx*p + dy)*p + dz) and sums, in the order of
+// o, the gradients of the windows it won.  Each output is written once by
+// one thread: no atomics, so the result does not change from run to run.
+// Ties are resolved as above; PyTorch's and JAX's max split a tie's
+// gradient evenly instead, so the kernel and the plain version
+// (ref.mpf_pool_bwd) agree bitwise, and the plain autograd of ref.mpf_pool
+// agrees only on inputs without ties in a window.
+//
+// Bound on the H100: bytes (x and gy read once, gx written once; no
+// arithmetic but compares).  For p = 2 a thread loads the 3^3
+// neighbourhood its eight windows span into registers once; other p read
+// each window's taps from memory (through L1).  The compile-time form is
+// replayed on the CPU by kernels/mpf_pool/ref.py:mpf_pool_bwd_gather.
+namespace {
+
+constexpr int BWD_THREADS = 256;
+
+// the gradient of window (o, v) at x[s, c, u] when u wins the window, else 0
+__device__ __forceinline__ float won(const float* __restrict__ gy, long long s, int c,
+                                     int f, int p3, int o, long long m3, int my, int mz,
+                                     int vx, int vy, int vz, bool win) {
+  return win ? gy[((s * p3 + o) * f + c) * m3 + ((long long)vx * my + vy) * mz + vz] : 0.f;
+}
+
+// P > 0: the pool size at compile time; P == 0: p_rt at run time
+template <int P>
+__global__ void __launch_bounds__(BWD_THREADS)
+mpf_pool_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gy,
+                    float* __restrict__ gx, int f, int nx, int ny, int nz, int p_rt,
+                    int mx, int my, int mz, long long total) {
+  const long long i = (long long)blockIdx.x * BWD_THREADS + threadIdx.x;
+  if (i >= total) return;
+  long long t = i;
+  const int uz = (int)(t % nz); t /= nz;
+  const int uy = (int)(t % ny); t /= ny;
+  const int ux = (int)(t % nx);
+  const long long sc = t / nx;  // s * f + c
+  const long long s = sc / f;
+  const int c = (int)(sc - s * f);
+  const float* xc = x + sc * nx * (long long)ny * nz;
+  const long long m3 = (long long)mx * my * mz;
+  float acc = 0.f;
+
+  if constexpr (P > 0) {
+    constexpr int W = 2 * P - 1, P3 = P * P * P;
+    // x[u - (P-1) .. u + (P-1)] on each axis, clamped into x (a clamped
+    // value is never read: every valid window lies inside x)
+    float nb[W][W][W];
+#pragma unroll
+    for (int a = 0; a < W; ++a) {
+      const int xx = min(max(ux + a - (P - 1), 0), nx - 1);
+#pragma unroll
+      for (int b = 0; b < W; ++b) {
+        const int yy = min(max(uy + b - (P - 1), 0), ny - 1);
+        const float* row = xc + ((long long)xx * ny + yy) * nz;
+#pragma unroll
+        for (int e = 0; e < W; ++e) nb[a][b][e] = row[min(max(uz + e - (P - 1), 0), nz - 1)];
+      }
+    }
+    // the window starting at u - (P-1) + (a, b, e), a compile-time offset,
+    // so the neighbourhood stays in registers; its fragment is o = start % P
+    float g[P][P][P];
+#pragma unroll
+    for (int a = 0; a < P; ++a)
+#pragma unroll
+      for (int b = 0; b < P; ++b)
+#pragma unroll
+        for (int e = 0; e < P; ++e) {
+          const int sx = ux + a - (P - 1), sy = uy + b - (P - 1), sz = uz + e - (P - 1);
+          const bool valid = sx >= 0 && sy >= 0 && sz >= 0 && sx / P < mx && sy / P < my &&
+                             sz / P < mz;
+          float best = nb[a][b][e];
+          int arg = 0;
+#pragma unroll
+          for (int d = 1; d < P3; ++d) {
+            const float v = nb[a + d / (P * P)][b + (d / P) % P][e + d % P];
+            if (v > best) {
+              best = v;
+              arg = d;
+            }
+          }
+          // u is tap ((P-1-a)*P + P-1-b)*P + P-1-e of this window
+          const bool win = valid && arg == ((P - 1 - a) * P + P - 1 - b) * P + P - 1 - e;
+          g[a][b][e] = won(gy, s, c, f, P3, valid ? ((sx % P) * P + sy % P) * P + sz % P : 0,
+                           m3, my, mz, sx / P, sy / P, sz / P, win);
+        }
+    // sum in the order of o, as the plain version does: fragment o's window
+    // on an axis starts at offset (u - o_axis) % P below u
+#pragma unroll
+    for (int o = 0; o < P3; ++o) {
+      const int ax = P - 1 - (((ux - o / (P * P)) % P + P) % P);
+      const int bx = P - 1 - (((uy - (o / P) % P) % P + P) % P);
+      const int ex = P - 1 - (((uz - o % P) % P + P) % P);
+      float v = 0.f;
+#pragma unroll
+      for (int a = 0; a < P; ++a)
+#pragma unroll
+        for (int b = 0; b < P; ++b)
+#pragma unroll
+          for (int e = 0; e < P; ++e)
+            if (a == ax && b == bx && e == ex) v = g[a][b][e];
+      acc += v;
+    }
+  } else {
+    const int p = p_rt, p3 = p * p * p;
+    for (int o = 0; o < p3; ++o) {
+      const int ox = o / (p * p), oy = (o / p) % p, oz = o % p;
+      const int rx = ux - ox, ry = uy - oy, rz = uz - oz;
+      if (rx < 0 || ry < 0 || rz < 0) continue;
+      const int vx = rx / p, vy = ry / p, vz = rz / p;
+      if (vx >= mx || vy >= my || vz >= mz) continue;
+      const int wx = ox + p * vx, wy = oy + p * vy, wz = oz + p * vz;  // first tap
+      float best = 0.f;
+      int arg = 0;
+      for (int d = 0; d < p3; ++d) {
+        const int dx = d / (p * p), dy = (d / p) % p, dz = d % p;
+        const float v = xc[((long long)(wx + dx) * ny + wy + dy) * nz + wz + dz];
+        if (d == 0 || v > best) {
+          best = v;
+          arg = d;
+        }
+      }
+      acc += won(gy, s, c, f, p3, o, m3, my, mz, vx, vy, vz,
+                 arg == ((ux - wx) * p + uy - wy) * p + uz - wz);
+    }
+  }
+  gx[i] = acc;
+}
+
+}  // namespace
+
+// gx (S, f, nx, ny, nz) from x of the same shape and gy (S*p^3, f, mx, my, mz)
+extern "C" int mpf_pool_bwd_f32(const float* x, const float* gy, float* gx, int S, int f,
+                                int nx, int ny, int nz, int p, int mx, int my, int mz,
+                                void* stream) {
+  if (p < 1) return (int)cudaErrorInvalidValue;
+  const long long total = (long long)S * f * nx * ny * nz;
+  if (total <= 0) return (int)cudaGetLastError();
+  const long long blocks = (total + BWD_THREADS - 1) / BWD_THREADS;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (p == 2)
+    mpf_pool_bwd_kernel<2><<<(unsigned)blocks, BWD_THREADS, 0, st>>>(
+        x, gy, gx, f, nx, ny, nz, p, mx, my, mz, total);
+  else
+    mpf_pool_bwd_kernel<0><<<(unsigned)blocks, BWD_THREADS, 0, st>>>(
+        x, gy, gx, f, nx, ny, nz, p, mx, my, mz, total);
+  return (int)cudaGetLastError();
+}

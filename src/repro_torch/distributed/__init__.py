@@ -1,7 +1,9 @@
 """Distribution substrate: the sharded fleet and the process groups.
 
 ``collectives``     — the boundary ``HaloPackage`` a sweep shard hands its
-                      successor, and ``halo_exchange``.
+                      successor, ``halo_exchange``, and the training
+                      collectives (ring all-gather matmul, chunked
+                      all-gather, compressed mean, reduce-scatter mean).
 ``fault_tolerance`` — ``HeartbeatMonitor`` (failure and straggler
                       detection on a caller-supplied clock) and
                       ``elastic_shard_sizes``.

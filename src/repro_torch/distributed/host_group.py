@@ -128,3 +128,13 @@ def all_gather_cat(t: torch.Tensor, dim: int, group=None) -> torch.Tensor:
     _BYTES["sent"] += _nbytes(h)
     _BYTES["received"] += (n - 1) * _nbytes(h)
     return torch.cat([p.to(t.device) for p in parts], dim=dim)
+
+
+def all_reduce_sum(t: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of every rank's ``t`` (same shape on each), on ``t``'s
+    device; gloo adds in its own order, the same result on every rank."""
+    h = _to_host(t).clone()
+    dist.all_reduce(h, op=dist.ReduceOp.SUM, group=group)
+    _BYTES["sent"] += _nbytes(h)
+    _BYTES["received"] += _nbytes(h)
+    return h.to(t.device)

@@ -7,8 +7,9 @@ into one shared library with a plain C interface.  The library lands in
 edited source rebuilds and an unchanged one loads at once.  Nothing here
 runs at import time: ``library()`` builds on its first call.
 
-Every C entry point returns ``cudaGetLastError()`` after its launches;
-``check`` raises when that is not 0.
+Every C entry point that launches returns ``cudaGetLastError()`` after
+its launches; ``check`` raises when that is not 0.  (``conv3d_wgrad_chunks``
+launches nothing: it returns the scratch size its launch will need.)
 """
 
 from __future__ import annotations
@@ -38,7 +39,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 
-# C signatures: every function returns an int (a cudaError_t)
+# C signatures: every function returns an int (a cudaError_t, but for
+# conv3d_wgrad_chunks)
 SIGNATURES = {
     # X, W, nb (nullable), O, S, f, fp, B, stream
     "cmul_mad_c64": (_P, _P, _P, _P, _I, _I, _I, _L, _P),
@@ -52,6 +54,12 @@ SIGNATURES = {
     "os_segment_conv_f32": (_P,) * 14 + (_I,) * 16 + (_P,),
     # x, w, out, S, f, fp, nx, ny, nz, kx, ky, kz, stream
     "conv3d_f32": (_P,) * 3 + (_I,) * 9 + (_P,),
+    # S, f, fp, nx, ny, nz, kx, ky, kz (returns the chunks C, or -1)
+    "conv3d_wgrad_chunks": (_I,) * 9,
+    # x, g, part, dw, S, f, fp, nx, ny, nz, kx, ky, kz, C, stream
+    "conv3d_wgrad_f32": (_P,) * 4 + (_I,) * 10 + (_P,),
+    # x, gy, gx, S, f, nx, ny, nz, p, mx, my, mz, stream
+    "mpf_pool_bwd_f32": (_P,) * 3 + (_I,) * 9 + (_P,),
     # q, k, v, lengths, part, out, B, S, Hkv, G, d, chunk, stream
     "decode_attn_f32": (_P,) * 6 + (_I,) * 6 + (_P,),
     "decode_attn_bf16": (_P,) * 6 + (_I,) * 6 + (_P,),

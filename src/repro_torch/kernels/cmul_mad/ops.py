@@ -11,7 +11,7 @@ from typing import Optional, Sequence
 import torch
 
 from .. import build
-from ..dispatch import check_operand, resolve_use_kernels
+from ..dispatch import check_no_grad, check_operand, resolve_use_kernels
 from . import ref as _ref
 
 launches = {"cmul_mad": 0, "cmul_mad_bias": 0}
@@ -57,6 +57,7 @@ def cmul_mad(
     """O[s,j] = Σ_i X[s,i] · W[j,i].  X (S,f,*sp), W (f',f,*sp) complex64."""
     if not resolve_use_kernels(use_kernels, X):
         return _ref.cmul_mad(X, W)
+    check_no_grad("cmul_mad", X, W)
     return _launch(X, W, None, "cmul_mad")
 
 
@@ -77,6 +78,7 @@ def cmul_mad_bias(
     """
     if not resolve_use_kernels(use_kernels, X):
         return _ref.cmul_mad_bias(X, W, b, fft_shape)
+    check_no_grad("cmul_mad_bias", X, W, b)
     fp = W.shape[0]
     n_total = 1
     for s in fft_shape:

@@ -24,7 +24,7 @@ from typing import Optional
 import torch
 
 from .. import build
-from ..dispatch import check_operand, resolve_use_kernels
+from ..dispatch import check_no_grad, check_operand, resolve_use_kernels
 from . import ref as _ref
 
 launches = {"decode_attn": 0}
@@ -56,6 +56,7 @@ def decode_attn(
         raise ValueError(f"{H} query heads do not group over {Hkv} kv heads")
     if not resolve_use_kernels(use_kernels, q):
         return _ref.decode_attn(q, k, v, lengths)
+    check_no_grad("decode_attn", q, k, v)
     G = H // Hkv
     if q.dtype not in _ENTRY:
         raise TypeError(f"decode_attn kernel takes float32 or bfloat16, got {q.dtype}")

@@ -1,10 +1,13 @@
-"""Plain PyTorch versions of the direct 3D conv.
+"""Plain PyTorch versions of the direct 3D conv and its gradients.
 
 ``conv3d``: k³ shifted channel products, the formulation of the TPU
 kernel it replaces: for each kernel offset (dx, dy, dz), accumulate
 ``w[:, :, dx, dy, dz]`` contracted over input channels with the input
-window shifted by that offset.  ``conv3d_tiled``: the CUDA kernel's own
-decomposition (csrc/direct_conv3d.cu) replayed for the tests.
+window shifted by that offset.  ``conv3d_dgrad`` and ``conv3d_wgrad``:
+its input and weight gradients, the same loop over offsets.
+``conv3d_tiled``: the CUDA kernel's own decomposition
+(csrc/direct_conv3d.cu) replayed for the tests, and ``conv3d_wgrad_chunked``
+the weight-gradient kernel's (csrc/conv3d_wgrad.cu).
 """
 
 from __future__ import annotations
@@ -17,15 +20,44 @@ import torch
 
 def conv3d(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (S, f, nx, ny, nz), w (f', f, kx, ky, kz) -> (S, f', n'x, n'y, n'z)."""
-    x = x.to(torch.float32)
-    w = w.to(torch.float32)
-    kx, ky, kz = w.shape[2:]
+    return correlate(x.to(torch.float32), w.to(torch.float32))
+
+
+def _offsets(k):
+    return itertools.product(*(range(int(ki)) for ki in k))
+
+
+def correlate(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``conv3d`` in the operands' own dtype (float64 for ``gradcheck``)."""
     npx, npy, npz = (int(n - k + 1) for n, k in zip(x.shape[2:], w.shape[2:]))
     out = x.new_zeros((x.shape[0], w.shape[0], npx, npy, npz))
-    for dx, dy, dz in itertools.product(range(kx), range(ky), range(kz)):
+    for dx, dy, dz in _offsets(w.shape[2:]):
         xs = x[:, :, dx : dx + npx, dy : dy + npy, dz : dz + npz]
         out += torch.einsum("ji,sixyz->sjxyz", w[:, :, dx, dy, dz], xs)
     return out
+
+
+def conv3d_dgrad(g: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The input gradient: g (S, f', n') and w (f', f, k) -> (S, f, n'+k-1),
+    dx[s, i, q] = sum_{j, t} g[s, j, q - t] w[j, i, t]."""
+    npx, npy, npz = g.shape[2:]
+    n = tuple(int(a + k - 1) for a, k in zip(g.shape[2:], w.shape[2:]))
+    dx = g.new_zeros((g.shape[0], w.shape[1]) + n)
+    for ox, oy, oz in _offsets(w.shape[2:]):
+        dx[:, :, ox:ox + npx, oy:oy + npy, oz:oz + npz] += torch.einsum(
+            "ji,sjxyz->sixyz", w[:, :, ox, oy, oz], g)
+    return dx
+
+
+def conv3d_wgrad(x: torch.Tensor, g: torch.Tensor, k) -> torch.Tensor:
+    """The weight gradient: x (S, f, n) and g (S, f', n - k + 1) ->
+    (f', f, k), dw[j, i, t] = sum_{s, q} g[s, j, q] x[s, i, q + t]."""
+    npx, npy, npz = g.shape[2:]
+    dw = x.new_zeros((g.shape[1], x.shape[1]) + tuple(int(ki) for ki in k))
+    for ox, oy, oz in _offsets(k):
+        dw[:, :, ox, oy, oz] = torch.einsum(
+            "sjxyz,sixyz->ji", g, x[:, :, ox:ox + npx, oy:oy + npy, oz:oz + npz])
+    return dw
 
 
 # The CUDA launcher's constants (csrc/direct_conv3d.cu), mirrored by the
@@ -219,3 +251,90 @@ def conv3d_tiled(x: torch.Tensor, w: torch.Tensor, *, blocks: int = 132,
     if plan is not None:
         return _plane_replay(x, w, plan, blocks)
     return _column_replay(x, w, column_plan(S, f, w.shape[0], n, k))
+
+
+# The weight-gradient launcher's constants (csrc/conv3d_wgrad.cu), mirrored
+# by the replay below
+WGRAD_JT, WGRAD_IT, WGRAD_DZ, WGRAD_ZT = 4, 4, 3, 8
+WGRAD_THREADS, WGRAD_SMEM_MAX = 256, 100 * 1024
+
+
+def wgrad_plan(S, f, fp, k, npn, sms: int = 132):
+    """``wgrad_plan`` of conv3d_wgrad.cu: the block's channel groups, rows
+    and padded rows, the items and their chunks; None when no tile fits."""
+    kx, ky, kz = k
+    npx, npy, npz = npn
+    tzg = -(-kz // WGRAD_DZ)
+    tg = kx * ky * tzg
+    if tg > WGRAD_THREADS:
+        return None
+    budget = WGRAD_THREADS // tg
+    jneed, ineed = -(-fp // WGRAD_JT), -(-f // WGRAD_IT)
+    root = math.isqrt(budget)
+    JG = min(jneed, root)
+    IG = min(ineed, budget // JG)
+    JG = min(jneed, budget // IG)
+    Zp = -(-npz // WGRAD_ZT) * WGRAD_ZT
+    XR = Zp + WGRAD_DZ * tzg
+    for TY in range(min(npy, 8), 0, -1):
+        gpitch = TY * Zp + 4
+        smem = 4 * (JG * WGRAD_JT * gpitch + IG * WGRAD_IT * kx * (TY + ky - 1) * XR)
+        if smem <= WGRAD_SMEM_MAX:
+            break
+    else:
+        return None
+    nyt = -(-npy // TY)
+    items = S * npx * nyt
+    jtiles, itiles = -(-fp // (JG * WGRAD_JT)), -(-f // (IG * WGRAD_IT))
+    if jtiles * itiles > 65535:
+        return None
+    want = -(-4 * sms // (jtiles * itiles))
+    return dict(tzg=tzg, JG=JG, IG=IG, TY=TY, Zp=Zp, XR=XR, nyt=nyt, items=items,
+                jtiles=jtiles, itiles=itiles, C=max(1, min(want, items)), smem=smem)
+
+
+def conv3d_wgrad_chunked(x: torch.Tensor, g: torch.Tensor, k, *, sms: int = 132):
+    """The weight-gradient kernel's decomposition in plain PyTorch, for the
+    tests: the items (s, x, TY output rows) cut into C chunks, each block's
+    tile of (JG*4 output, IG*4 input channels) staged with its rows padded
+    with zeros along z (g to Zp, x to XR), every (dx, dy, dz) summed over
+    the chunk's rows, the partials written for the valid (j, i, dz) only
+    and the C partials added in chunk order."""
+    x, g = x.to(torch.float32), g.to(torch.float32)
+    S, f, nx, ny, nz = x.shape
+    fp = g.shape[1]
+    k = tuple(int(a) for a in k)
+    npn = tuple(int(a) for a in g.shape[2:])
+    kx, ky, kz = k
+    npx, npy, npz = npn
+    plan = wgrad_plan(S, f, fp, k, npn, sms)
+    if plan is None:
+        raise ValueError(f"no weight-gradient tile fits k {k}")
+    JT, IT = plan["JG"] * WGRAD_JT, plan["IG"] * WGRAD_IT
+    TY, Zp, XR, C = plan["TY"], plan["Zp"], plan["XR"], plan["C"]
+    dzs = plan["tzg"] * WGRAD_DZ
+    part = torch.full((C, fp, f) + k, float("nan"))
+    for c in range(C):
+        it0, it1 = plan["items"] * c // C, plan["items"] * (c + 1) // C
+        for jt, it in itertools.product(range(plan["jtiles"]), range(plan["itiles"])):
+            j0, i0 = jt * JT, it * IT
+            nj, ni = min(JT, fp - j0), min(IT, f - i0)
+            acc = x.new_zeros((JT, IT, kx, ky, dzs))
+            for item in range(it0, it1):
+                tyi, rest = item % plan["nyt"], item // plan["nyt"]
+                px, s = rest % npx, rest // npx
+                py0 = tyi * TY
+                tyn = min(TY, npy - py0)
+                gs = x.new_zeros((JT, TY, Zp))
+                gs[:nj, :tyn, :npz] = g[s, j0:j0 + nj, px, py0:py0 + tyn]
+                xs = x.new_zeros((IT, kx, TY + ky - 1, XR))
+                xs[:ni, :, :tyn + ky - 1, :nz] = x[s, i0:i0 + ni, px:px + kx,
+                                                    py0:py0 + tyn + ky - 1]
+                for dx, dy, dz in itertools.product(range(kx), range(ky), range(dzs)):
+                    acc[:, :, dx, dy, dz] += torch.einsum(
+                        "jrz,irz->ji", gs[:, :tyn], xs[:, dx, dy:dy + tyn, dz:dz + Zp])
+            part[c, j0:j0 + nj, i0:i0 + ni] = acc[:nj, :ni, :, :, :kz]
+    dw = torch.zeros((fp, f) + k)
+    for c in range(C):
+        dw = dw + part[c]
+    return dw

@@ -13,6 +13,11 @@ Every kernel wrapper (and everything above it: ``core/fft_conv``,
 
 There is no fallback: a kernel that fails to build or launch raises, it
 never silently runs the plain version instead.
+
+Only ``conv3d`` and ``mpf_pool`` have backward kernels (the primitives
+``direct`` and ``mpf``, which training uses, as the reference does).  The
+other kernels call ``check_no_grad`` on their kernel path, so a gradient
+asked of them raises instead of stopping silently at their output.
 """
 
 from __future__ import annotations
@@ -60,3 +65,15 @@ def check_operand(t: torch.Tensor, name: str, dtype: torch.dtype) -> None:
         raise ValueError(f"{name} must be contiguous")
     if t.is_conj():
         raise ValueError(f"{name} carries a lazy conjugate bit; resolve it first")
+
+
+def check_no_grad(what: str, *operands) -> None:
+    """Raise when autograd would record a kernel that has no backward: its
+    output would carry no gradient to the operands that need one."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in operands):
+        raise RuntimeError(
+            f"{what} has no backward kernel, and an operand requires grad; "
+            "train with the 'direct' and 'mpf' primitives, or run it under "
+            "torch.no_grad()"
+        )

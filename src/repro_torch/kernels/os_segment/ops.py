@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from .. import build
-from ..dispatch import check_operand, resolve_use_kernels
+from ..dispatch import check_no_grad, check_operand, resolve_use_kernels
 from . import ref as _ref
 
 launches = {"os_segment": 0, "os_segment_conv": 0}
@@ -187,6 +187,7 @@ def os_segment_fused(
     """
     if not resolve_use_kernels(use_kernels, F):
         return _ref.os_segment_fused(F, W, b, spec, out_cols)
+    check_no_grad("os_segment", F, W, b)
     j0 = spec.n_segments - F.shape[1]
     L = spec.out[0] if out_cols is None else int(out_cols)
     return _launch(F, W, b, spec, j0, L)
@@ -229,6 +230,7 @@ def os_segment_conv(
         raise ValueError(f"x {tuple(x.shape)} does not match spec.n {spec.n}")
     if not resolve_use_kernels(use_kernels, x):
         return _ref.os_segment_conv(x, W, b, spec)
+    check_no_grad("os_segment_conv", x, W, b)
     check_operand(x, "x", torch.float32)
     check_operand(W, "W", torch.complex64)
     N, f, nx, ny, nz = x.shape

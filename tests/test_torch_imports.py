@@ -35,6 +35,14 @@ MODULES = (
     "repro_torch.tuning.autotune",
     "repro_torch.core.distributed_inference",
     "repro_torch.distributed.host_group",
+    "repro_torch.optim",
+    "repro_torch.data",
+    "repro_torch.checkpoint",
+    "repro_torch.roofline",
+    "repro_torch.examples.train_segmentation",
+    "repro_torch.examples.quickstart",
+    "repro_torch.examples.serve_volume",
+    "repro_torch.examples.pipeline_inference",
 )
 
 
