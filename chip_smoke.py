@@ -109,21 +109,31 @@ Phases, in order; any failure makes the exit code non-zero:
    a. The backward kernels against their plain versions: the input
       gradient (through the ``conv3d`` kernel) and ``conv3d_wgrad``
       against the plain autograd of ``ref.conv3d`` at n337's training
-      shapes (layers 0, 2, 4, 6, 9), bitwise repeatable, then at 14 ragged
-      shapes; ``mpf_pool_bwd`` at layers 1, 3, 5 on tie-free inputs,
-      bitwise equal to its plain version and within ``GRAD_TOL`` of the
-      plain pool's autograd, then at ragged shapes; each timed beside its
-      bound, its plain version and cuDNN's ``conv3d_weight`` /
-      ``conv3d_input`` (TF32 off), and the forward ``conv3d`` at the same
-      shapes beside cuDNN's ``conv3d``.
+      shapes (layers 0, 2, 4, 6, 9), ``conv3d_wgrad`` bitwise repeatable,
+      then at 19 ragged shapes (five cut at its tile edges);
+      ``mpf_pool_bwd`` at layers 1, 3, 5 on tie-free inputs, bitwise equal
+      to its plain version and on a second call, and within ``GRAD_TOL``
+      of the plain pool's autograd, then at 8 ragged shapes (three cut by
+      its tiles on every axis); each timed beside its bound, its plain
+      version and cuDNN's ``conv3d_weight`` / ``conv3d_input`` (TF32 off),
+      and the forward ``conv3d`` at the same shapes beside cuDNN's
+      ``conv3d``.  ``conv3d_wgrad``'s bound is its route's (3xTF32: three
+      TF32 products a product at 495 TFLOP/s), printed beside the fp32
+      one; no kernel may time under its route's bound.
    b. Full-width n337 (80 maps, 10 layers, ``direct``/``mpf``, random
       weights from seed 0) takes five AdamW steps at m = 2 (input 100³),
       batch 2, on ``SyntheticVolumePipeline`` batches and the example's
       labels, with the launch counts zeroed just before and read just
       after; each step's loss held against the plain versions at the same
       params (within ``LOSS_RTOL``), and step 1's parameter gradients
-      (every one present, within ``GRAD_TOL``); the later steps' gradient
-      errors are printed.  Then the plain versions' own five steps from
+      (every one present, within ``GRAD_TOL``).  At every step float64
+      gradients at the same params (``grads_f64``: cuDNN's conv3d with
+      TF32 off, the plain pool) are computed on float64's own ReLU and pool
+      branches and on each fp32 forward's (``forward_branches``), and each
+      leaf's error is printed for the kernels and the plain versions with
+      the count of branches each forward takes apart from float64's; steps
+      2-5 hold the kernels to ``|g - g64| <= 1e-4 max|g64| + 1e-6`` on the
+      kernels' own branches (``F64_TOL``, ``F64_ATOL``).  Then the plain versions' own five steps from
       the same initial params: step 1 held the same way, the later steps'
       losses printed beside the kernel run's.  Each
       step's host and device time, the allocator peak, the bytes held for
@@ -173,9 +183,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
 
 # NVIDIA H100 SXM data sheet: fp32 outside the tensor cores, dense bf16
-# on the tensor cores, HBM3
+# and TF32 on the tensor cores, HBM3
 PEAK_FP32 = 67e12
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
 
 KERNELS = {
@@ -2222,9 +2233,19 @@ RAGGED_GRAD = (
     (3, 6, 1, (8, 8, 40), (3, 3, 3)), (2, 1, 20, (15, 14, 13), (2, 2, 2)),
     (7, 12, 5, (7, 7, 7), (7, 7, 7)), (1, 33, 17, (9, 10, 11), (3, 3, 3)),
     (1, 3, 4, (12, 12, 12), (9, 9, 9)), (9, 80, 80, (8, 9, 10), (3, 3, 3)),
+    # conv3d_wgrad's tiles (PR 21): 128 or 256 rows of f*k^3, 8/16/40/80
+    # columns of f', items of TY rows or TX whole planes: 2 x 2 tiles with
+    # f' = 81, f*k^3 = 135 and 2160 (no multiple of 128), a partial row item,
+    # items of one row wider than 256 positions, whole planes of 1^3 outputs
+    (2, 5, 81, (9, 8, 7), (3, 3, 3)), (3, 80, 41, (11, 6, 13), (3, 3, 3)),
+    (2, 2, 17, (6, 40, 30), (2, 2, 2)), (1, 1, 80, (4, 5, 301), (2, 2, 2)),
+    (64, 80, 3, (3, 3, 3), (3, 3, 3)),
 )
 RAGGED_POOL = ((2, 3, (7, 9, 5), 2), (1, 5, (11, 11, 11), 3), (3, 4, (9, 5, 7), 2),
-               (1, 2, (8, 5, 11), 3), (5, 80, (13, 15, 17), 2))
+               (1, 2, (8, 5, 11), 3), (5, 80, (13, 15, 17), 2),
+               # mpf_pool_bwd's tiles (PR 21: 8 x 8 x up to 62, 9 for p = 3)
+               # cut windows on every axis: z in two and three tiles
+               (2, 3, (17, 11, 71), 2), (1, 4, (11, 14, 131), 3), (1, 2, (9, 17, 129), 2))
 
 
 def tie_free(shape, device, gen):
@@ -2289,26 +2310,38 @@ def check_grad_kernels(smoke, device, gen, convs=TRAIN_CONVS, pools=TRAIN_POOLS,
         del dx_p, dw_p
         flops = 2.0 * S * fp * f * k**3 * npn**3
         rows = {}
-        for name, fn, plain, lib, nbytes in (
+        # (name, kernel, plain, cuDNN, bytes, the route's peak and its
+        # operations per FLOP): conv3d_wgrad runs 3xTF32 on the tensor cores
+        # (three TF32 products a product), the conv3d kernel fp32 FMAs
+        for name, fn, plain, lib, nbytes, peak, ops in (
                 ("conv3d_wgrad", lambda: cops.conv3d_wgrad(x, g, k3),
                  lambda: cref.conv3d_wgrad(x, g, k3),
-                 lambda: torch.nn.grad.conv3d_weight(x, w.shape, g), _nb(x) + _nb(g) + _nb(w)),
+                 lambda: torch.nn.grad.conv3d_weight(x, w.shape, g), _nb(x) + _nb(g) + _nb(w),
+                 PEAK_TF32, 3),
                 ("input gradient", lambda: cops.conv3d_dgrad(g, w),
                  lambda: cref.conv3d_dgrad(g, w),
-                 lambda: torch.nn.grad.conv3d_input(x.shape, w, g), _nb(g) + _nb(w) + _nb(x)),
+                 lambda: torch.nn.grad.conv3d_input(x.shape, w, g), _nb(g) + _nb(w) + _nb(x),
+                 PEAK_FP32, 1),
                 ("conv3d forward", lambda: cops.conv3d(x, w), lambda: cref.conv3d(x, w),
-                 lambda: torch.nn.functional.conv3d(x, w), _nb(x) + _nb(w) + _nb(g))):
+                 lambda: torch.nn.functional.conv3d(x, w), _nb(x) + _nb(w) + _nb(g),
+                 PEAK_FP32, 1)):
             ms = time_ms(fn, device)
             plain_ms = time_ms(plain, device, reps=2)
             with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
                 lib_ms = time_ms(lib, device)
-            b_ms, b_by = bound(nbytes, flops)
+            b_ms, b_by = bound(nbytes, ops * flops, peak)
+            f_ms, f_by = bound(nbytes, flops)
             rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                               bound_by=b_by)
+            route = (f"bound {b_ms:.3f} ms as 3xTF32 ({b_by}; {ops * flops / 1e9:.1f} GFLOP "
+                     f"TF32 at {peak / 1e12:.0f} TFLOP/s), {100 * b_ms / ms:.1f}% of it; fp32 "
+                     f"bound {f_ms:.3f} ms ({f_by}), {100 * f_ms / ms:.1f}%" if ops > 1 else
+                     f"bound {b_ms:.3f} ms ({b_by}), {100 * b_ms / ms:.1f}% of bound")
             print(f"kernel {name} ({label}, {shapes}): {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-                  f"cuDNN (TF32 off) {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}; "
-                  f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e9:.3f} GB), "
-                  f"{100 * b_ms / ms:.1f}% of bound", flush=True)
+                  f"cuDNN (TF32 off) {lib_ms:.3f} ms; {flops / 1e9:.1f} GFLOP, "
+                  f"{nbytes / 1e9:.3f} GB; {route}", flush=True)
+            smoke.check(b_ms <= ms, f"kernel {name} ({label}): {ms:.3f} ms, no faster than "
+                                    f"its route's bound {b_ms:.3f} ms")
         if label == convs[min(1, len(convs) - 1)][0]:
             results["conv3d_wgrad"] = dict(rows["conv3d_wgrad"])
             results["conv3d input gradient"] = dict(rows["input gradient"], max_abs_err=e_dx)
@@ -2343,6 +2376,8 @@ def check_grad_kernels(smoke, device, gen, convs=TRAIN_CONVS, pools=TRAIN_POOLS,
         smoke.check(torch.equal(gx, want),
                     f"mpf_pool_bwd ({label}), x {tuple(x.shape)}: bitwise equal to its plain "
                     f"version (max_abs_err {err:.3e})")
+        smoke.check(torch.equal(gx, mops.mpf_pool_bwd(x, gy, 2)),
+                    f"mpf_pool_bwd ({label}): a second call is bitwise equal")
         _grad_close(smoke, f"mpf_pool_bwd ({label}) vs the autograd of the plain pool "
                            "(tie-free input)", gx, ga)
         ms = time_ms(lambda: mops.mpf_pool_bwd(x, gy, 2), device)
@@ -2351,6 +2386,8 @@ def check_grad_kernels(smoke, device, gen, convs=TRAIN_CONVS, pools=TRAIN_POOLS,
         print(f"kernel mpf_pool_bwd ({label}, x {tuple(x.shape)}, p 2): {ms:.3f} ms, plain "
               f"{plain_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), {100 * b_ms / ms:.1f}% of "
               "bound; no PyTorch call gives every fragment's gradient", flush=True)
+        smoke.check(b_ms <= ms, f"kernel mpf_pool_bwd ({label}): {ms:.3f} ms, no faster than "
+                                f"its bound {b_ms:.3f} ms")
         if label == pools[0][0]:
             results["mpf_pool_bwd"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
                                            bound_ms=b_ms, bound_by=b_by)
@@ -2383,6 +2420,173 @@ def _clone(t):
     from repro_torch.optim import tree
 
     return tree.unflatten(t, [x.clone() for x in tree.leaves(t)])
+
+
+def _pool_at(h, p, args):
+    """The MPF fragments of h taking each window's value at the tap
+    ``args[o]`` names (o in fragment order): the pool on given branches."""
+    import itertools
+
+    import torch
+
+    S, f = h.shape[:2]
+    m = [n // p for n in h.shape[2:]]
+    frags = []
+    for o, (ox, oy, oz) in enumerate(itertools.product(range(p), repeat=3)):
+        v = h[:, :, ox:ox + p * m[0], oy:oy + p * m[1], oz:oz + p * m[2]]
+        v = v.reshape(S, f, m[0], p, m[1], p, m[2], p).permute(0, 1, 2, 4, 6, 3, 5, 7)
+        v = v.reshape(S, f, *m, p**3)
+        frags.append(torch.gather(v, -1, args[o].long().unsqueeze(-1))[..., 0])
+    return torch.stack(frags, dim=1).reshape(S * p**3, f, *m)
+
+
+def forward_branches(params, net, x, precision):
+    """The branches one forward of the train cell takes: per ReLU the mask
+    of positive pre-activations, per pool each fragment's window argmax (the
+    first maximum in tap order), as int8 (p³, S, f, m³).  ``precision``:
+    "kernels" (the fp32 kernel path), "plain" (the fp32 plain versions) or
+    "float64" (cuDNN's conv3d, TF32 off)."""
+    import itertools
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.bias import add_channel_bias
+    from repro_torch.kernels.direct_conv3d import ops as cops
+    from repro_torch.kernels.mpf_pool import ops as mops
+
+    uk = None if precision == "kernels" else False
+    last = max(i for i, layer in enumerate(net.layers) if layer.kind == "conv")
+    out = []
+    with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        h = x.to(torch.float64 if precision == "float64" else torch.float32)
+        for i, layer in enumerate(net.layers):
+            if layer.kind == "conv":
+                w, b = params[i]
+                if precision == "float64":
+                    h = F.conv3d(h, w.to(torch.float64), b.to(torch.float64))
+                else:
+                    h = add_channel_bias(cops.conv3d(h, w, use_kernels=uk), b)
+                if i != last:
+                    out.append(h > 0)
+                    h = torch.relu(h)
+            else:
+                p = layer.size
+                m = [n // p for n in h.shape[2:]]
+                args = []
+                for ox, oy, oz in itertools.product(range(p), repeat=3):
+                    v = h[:, :, ox:ox + p * m[0], oy:oy + p * m[1], oz:oz + p * m[2]]
+                    v = v.reshape(*v.shape[:2], m[0], p, m[1], p, m[2], p)
+                    args.append(v.permute(0, 1, 2, 4, 6, 3, 5, 7).reshape(
+                        *v.shape[:2], *m, p**3).argmax(-1).to(torch.int8))
+                out.append(torch.stack(args))
+                h = mops.mpf_pool(h, p, use_kernels=False if precision == "float64" else uk)
+    return out
+
+
+def branch_flips(a, b) -> int:
+    """Places where two forwards' branches (``forward_branches``) differ."""
+    return sum(int((u != v).sum()) for u, v in zip(a, b))
+
+
+def grads_f64(params, net, x, y, branches=None):
+    """The train cell's gradients at ``params`` in float64: cuDNN's conv3d
+    (TF32 off) and the plain pool (``MpfPoolFn`` on ``ref.mpf_pool`` and
+    ``ref.mpf_pool_bwd``, the kernels' first-maximum rule) under autograd,
+    the example's BCE computed in float64.  With ``branches`` (an fp32
+    forward's, ``forward_branches``) every ReLU and pool follows that
+    forward's branches instead of its own, so the result differs from that
+    forward's gradients by their arithmetic alone.  A check, not a path of
+    the port."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.mpf import recombine_fragments
+    from repro_torch.kernels.mpf_pool.ops import MpfPoolFn
+    from repro_torch.optim import tree
+
+    leaves = [p.detach().to(torch.float64).requires_grad_(True) for p in tree.leaves(params)]
+    p64 = tree.unflatten(params, leaves)
+    last = max(i for i, layer in enumerate(net.layers) if layer.kind == "conv")
+    taken = iter(branches or ())
+    pools = []
+    with torch.enable_grad(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        h = x.to(torch.float64)
+        for i, layer in enumerate(net.layers):
+            if layer.kind == "conv":
+                h = F.conv3d(h, *p64[i])
+                if i != last:
+                    h = h.masked_fill(~next(taken), 0.0) if branches else torch.relu(h)
+            else:
+                h = (_pool_at(h, layer.size, next(taken)) if branches
+                     else MpfPoolFn.apply(h, layer.size, False))
+                pools.append(layer.size)
+        z = recombine_fragments(h, pools, x.shape[0])
+        t = y.to(torch.float64)
+        loss = torch.mean(torch.clamp(z, min=0) - z * t + torch.log1p(torch.exp(-z.abs())))
+        grads = torch.autograd.grad(loss, leaves)
+    return tree.unflatten(params, list(grads))
+
+
+# the gradient gate of train steps 2-5, per leaf, against the float64
+# gradients at the same params along the kernels' own branches:
+#   |g - g64| <= F64_TOL * max|g64| + F64_ATOL
+# (the CPU test's formula, tests/test_torch_training.py).  Along the
+# kernels' own branches g64 differs from the kernels' gradients by their
+# arithmetic alone; against float64's own branches it also differs by every
+# ReLU and pool window the fp32 forward takes the other way, each moving a
+# gradient term whole (PR 21: 199-277 such places a step for the kernel
+# path, 55-78 for the plain versions), which even the fp32 plain versions
+# do not meet at steps 3-4.  Both comparisons are printed.
+F64_TOL, F64_ATOL = 1e-4, 1e-6
+
+
+def f64_gate(smoke, step, params, net, x, y, grads, plain, gate: bool):
+    """Hold the kernels' gradients ``grads`` at ``params`` against float64
+    ones along the kernels' branches (with ``gate``), and print, per leaf as
+    max_abs_err / max|g64|, the kernels' and the fp32 plain versions'
+    (``plain``) errors against float64 on float64's own branches and on
+    each forward's own, with the count of branches each forward takes
+    apart from float64's.  Returns the kernels' largest error over its
+    leaf's tolerance."""
+    import torch
+
+    from repro_torch.optim import tree
+
+    t = time.perf_counter()
+    br = {k: forward_branches(params, net, x, k) for k in ("kernels", "plain", "float64")}
+    print(f"train step {step}: ReLU and pool branches apart from float64's: kernels "
+          f"{branch_flips(br['kernels'], br['float64'])}, fp32 plain "
+          f"{branch_flips(br['plain'], br['float64'])} (kernels from plain "
+          f"{branch_flips(br['kernels'], br['plain'])})", flush=True)
+    g64 = tree.leaves(grads_f64(params, net, x, y))
+    gk64 = tree.leaves(grads_f64(params, net, x, y, branches=br["kernels"]))
+    gp64 = tree.leaves(grads_f64(params, net, x, y, branches=br["plain"]))
+    del br
+    gl, pl = tree.leaves(grads), tree.leaves(plain)
+
+    def rel(a, b):
+        b = b.to(torch.float32)
+        return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+    for what, ref_k, ref_p in (("float64's own branches", g64, g64),
+                               ("each forward's own branches", gk64, gp64)):
+        print(f"train step {step} gradients vs float64 on {what}: max_abs_err / max|g64| by "
+              "leaf, kernels | fp32 plain: " + ", ".join(
+                  f"{rel(a, c):.2e} | {rel(b, d):.2e}"
+                  for a, b, c, d in zip(gl, pl, ref_k, ref_p)), flush=True)
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(gl, gk64)):
+        w = w.to(torch.float32)
+        err, tol = float((g - w).abs().max()), F64_TOL * float(w.abs().max()) + F64_ATOL
+        worst = max(worst, err / tol)
+        if gate:
+            smoke.check(err <= tol and bool(torch.isfinite(g).all()),
+                        f"train step {step} gradients, leaf {i} {tuple(g.shape)} vs float64 on "
+                        f"the kernels' branches: max_abs_err {err:.3e} <= {F64_TOL} x max|g64| "
+                        f"+ {F64_ATOL} = {tol:.3e}")
+    print(f"train step {step}: float64 oracles {time.perf_counter() - t:.1f} s", flush=True)
+    return worst
 
 
 def train_n337(smoke, device, net, counts, train=TRAIN):
@@ -2430,11 +2634,14 @@ def train_n337(smoke, device, net, counts, train=TRAIN):
     print(f"train: {saved} B held for the backward after one forward "
           f"(the saved activations)", flush=True)
 
+    f64_worst = []  # each step's largest error over its F64 tolerance
+
     def run(params, opt, steps, use_kernels, work=None, against_plain=False):
         """Steps ``steps`` from (params, opt); with ``against_plain`` each
         step's loss is held against the plain versions at the same params
-        (outside the timed step), and so are step 1's gradients; later
-        steps' gradient errors are printed."""
+        (outside the timed step), and so are step 1's gradients; every
+        step's gradients are compared with float64 ones at the same params
+        (``grads_f64``), and from step 2 on held to the F64 gate."""
         losses, grads0, host, dev_ms, th, peak = [], None, [], [], None, 0
         for s in steps:
             if cuda:
@@ -2472,6 +2679,8 @@ def train_n337(smoke, device, net, counts, train=TRAIN):
                     print(f"{label}: max_abs_err / max|plain| by leaf " + ", ".join(
                         f"{float((g - w).abs().max()) / float(w.abs().max()):.2e}"
                         for g, w in zip(tree.leaves(grads), tree.leaves(gp))), flush=True)
+                f64_worst.append(f64_gate(smoke, s + 1, before, net, *batches[s], grads, gp,
+                                          gate=s != steps[0]))
                 del lp, gp
         return params, opt, losses, grads0, host, dev_ms, th, peak
 
@@ -2562,7 +2771,8 @@ def train_n337(smoke, device, net, counts, train=TRAIN):
                 host_ms=host, device_ms=dev_ms, plain_host_ms=host_p, plain_device_ms=dev_p,
                 launches_per_step=per_step, allocator_peak=peak, plain_allocator_peak=peak_p,
                 saved_bytes=saved,
-                step1_grad_max_abs_err=grad_err, profiled_wall_ms=wall * 1e3,
+                step1_grad_max_abs_err=grad_err, f64_err_over_tol=f64_worst,
+                profiled_wall_ms=wall * 1e3,
                 profiled_busy_ms=busy * 1e3)
 
 

@@ -207,31 +207,61 @@ extern "C" int mpf_pool_f32(const float* x, float* out, int S, int f, int nx,
 //                 whose first maximum in tap order lies at u of
 //                 gy[s*p^3 + o, c, v]
 //
-// Gather form: a thread owns one input voxel u.  On each axis u lies in
-// one window of each fragment o (v = (u - o) / p, where 0 <= v < m), so
-// it visits at most p^3 windows, recomputes each one's argmax (the first
-// maximum in tap order d = (dx*p + dy)*p + dz) and sums, in the order of
-// o, the gradients of the windows it won.  Each output is written once by
-// one thread: no atomics, so the result does not change from run to run.
-// Ties are resolved as above; PyTorch's and JAX's max split a tie's
-// gradient evenly instead, so the kernel and the plain version
-// (ref.mpf_pool_bwd) agree bitwise, and the plain autograd of ref.mpf_pool
-// agrees only on inputs without ties in a window.
+// Ties go to the first maximum in tap order d = (dx*p + dy)*p + dz;
+// PyTorch's and JAX's max split a tie's gradient evenly instead, so the
+// kernel and the plain version (ref.mpf_pool_bwd) agree bitwise, and the
+// plain autograd of ref.mpf_pool agrees only on inputs without ties in a
+// window.
 //
 // Bound on the H100: bytes (x and gy read once, gx written once; no
-// arithmetic but compares).  For p = 2 a thread loads the 3^3
-// neighbourhood its eight windows span into registers once; other p read
-// each window's taps from memory (through L1).  The compile-time form is
-// replayed on the CPU by kernels/mpf_pool/ref.py:mpf_pool_bwd_gather.
+// arithmetic but compares).
+//
+// Design.  A block owns one (s, c) and a tile of tx * ty * tz voxels
+// (multiples of p along each axis, tx = ty = 8 for p = 2, tz up to 62 and
+// as even a cut of nz as p allows), aligned to p.  It stages the tile's x
+// with a (p - 1) halo on each side into shared memory once (rows along z,
+// eight rows of loads a warp in flight before their stores), and clears a
+// gx box of the same extent.  Then, fragment by fragment in the order of
+// o, each warp takes rows of that fragment's windows that touch the tile
+// (lanes on consecutive vz, so each row's gy reads coalesce), finds each
+// window's first maximum once from shared memory, and adds the window's gy
+// to the gx box there; a barrier separates the fragments.  The windows of
+// one fragment are disjoint, so no two threads add at one voxel, and each
+// voxel sums the windows it won in the order of o, as the plain version
+// does: no atomics, bitwise equal.  A window across the tile's edge is
+// evaluated by every tile it touches; what it adds in the box's halo is
+// scratch, so no bounds test.  Last the box's tile is written once,
+// coalesced.  Index math inside a tile is 32-bit (a row table gives each
+// row's first window).  p = 2, every net's pool in configs/znni_nets.py,
+// is a template argument; other p read p at run time.  (Staging gy in
+// shared memory as well measured slower on the card, PR 21.)
+// kernels/mpf_pool/ref.py:mpf_pool_bwd_tiled replays the tiles on the CPU.
 namespace {
 
 constexpr int BWD_THREADS = 256;
+constexpr int BWD_WARPS = BWD_THREADS / 32;
+constexpr int BWD_TXY = 8;    // tile extent along x and y, rounded up to p
+constexpr int BWD_TZMAX = 62; // tile extent along z at most, rounded up to p
+                              // (32 windows a row for p = 2)
 
-// the gradient of window (o, v) at x[s, c, u] when u wins the window, else 0
-__device__ __forceinline__ float won(const float* __restrict__ gy, long long s, int c,
-                                     int f, int p3, int o, long long m3, int my, int mz,
-                                     int vx, int vy, int vz, bool win) {
-  return win ? gy[((s * p3 + o) * f + c) * m3 + ((long long)vx * my + vy) * mz + vz] : 0.f;
+struct BwdTiles {
+  int tx, ty, tz, ntx, nty, ntz, rmax;
+  size_t smem;
+};
+
+BwdTiles bwd_tiles(int nx, int ny, int nz, int p) {
+  BwdTiles t;
+  t.tx = t.ty = (BWD_TXY + p - 1) / p * p;
+  const int cuts = (nz + BWD_TZMAX - 1) / BWD_TZMAX;
+  t.tz = ((nz + cuts - 1) / cuts + p - 1) / p * p;
+  t.ntx = (nx + t.tx - 1) / t.tx;
+  t.nty = (ny + t.ty - 1) / t.ty;
+  t.ntz = (nz + t.tz - 1) / t.tz;
+  // the rows (vx, vy) of one fragment's windows that touch a tile, at most
+  t.rmax = (t.tx / p + 1) * (t.ty / p + 1);
+  const size_t box = (size_t)(t.tx + 2 * p - 2) * (t.ty + 2 * p - 2) * (t.tz + 2 * p - 2);
+  t.smem = sizeof(float) * (2 * box) + sizeof(int) * 2 * (size_t)p * p * p * t.rmax;
+  return t;
 }
 
 // P > 0: the pool size at compile time; P == 0: p_rt at run time
@@ -239,104 +269,155 @@ template <int P>
 __global__ void __launch_bounds__(BWD_THREADS)
 mpf_pool_bwd_kernel(const float* __restrict__ x, const float* __restrict__ gy,
                     float* __restrict__ gx, int f, int nx, int ny, int nz, int p_rt,
-                    int mx, int my, int mz, long long total) {
-  const long long i = (long long)blockIdx.x * BWD_THREADS + threadIdx.x;
-  if (i >= total) return;
-  long long t = i;
-  const int uz = (int)(t % nz); t /= nz;
-  const int uy = (int)(t % ny); t /= ny;
-  const int ux = (int)(t % nx);
-  const long long sc = t / nx;  // s * f + c
-  const long long s = sc / f;
-  const int c = (int)(sc - s * f);
-  const float* xc = x + sc * nx * (long long)ny * nz;
-  const long long m3 = (long long)mx * my * mz;
-  float acc = 0.f;
+                    int mx, int my, int mz, int tx, int ty, int tz, int ntx, int nty,
+                    int ntz, int rmax) {
+  extern __shared__ float bsm[];
+  const int p = P > 0 ? P : p_rt, q = p - 1, p3 = p * p * p;
+  const int bx = tx + 2 * q, by = ty + 2 * q, bz = tz + 2 * q, box = bx * by * bz;
+  float* xs = bsm;                 // [bx][by][bz]: x from the tile's corner - q
+  float* gs = xs + box;            // gx in the same box; its halo is scratch
+  int* rows = reinterpret_cast<int*>(gs + box);  // [p^3][rmax]
+  int* gyrows = rows + p3 * rmax;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
-  if constexpr (P > 0) {
-    constexpr int W = 2 * P - 1, P3 = P * P * P;
-    // x[u - (P-1) .. u + (P-1)] on each axis, clamped into x (a clamped
-    // value is never read: every valid window lies inside x)
-    float nb[W][W][W];
+  // block -> (z tile, y tile, x tile, s*f + c), z fastest (the grid's
+  // size is below 2^31, so 32-bit)
+  unsigned blk = blockIdx.x;
+  const int zt = (int)(blk % ntz); blk /= ntz;
+  const int yt = (int)(blk % nty); blk /= nty;
+  const int xt = (int)(blk % ntx);
+  const int scb = (int)(blk / ntx);
+  const long long sc = scb;
+  const long long s = scb / f;
+  const int c = scb - (int)s * f;
+  const int X0 = xt * tx, Y0 = yt * ty, Z0 = zt * tz;
+  const float* xv = x + sc * nx * (long long)ny * nz;
+
+  // on an axis the windows v of fragment offset o that touch the tile
+  // [U0, U0 + T) are U0/p - (o > 0) .. U0/p + T/p - 1, within [0, m)
+  const int ax0 = X0 / p, ay0 = Y0 / p, az0 = Z0 / p;
+  auto windows = [&](int o, int& vx0, int& vy0, int& vz0, int& wx, int& wy, int& wz) {
+    vx0 = max(0, ax0 - (o / (p * p) > 0));
+    vy0 = max(0, ay0 - ((o / p) % p > 0));
+    vz0 = max(0, az0 - (o % p > 0));
+    wx = max(0, min(mx, ax0 + tx / p) - vx0);
+    wy = max(0, min(my, ay0 + ty / p) - vy0);
+    wz = max(0, min(mz, az0 + tz / p) - vz0);
+  };
+
+  // x with its halo, eight rows a warp in flight before their stores (zero
+  // outside the volume, where no valid window has a tap; bz <= 96)
+  {
+    constexpr int RB = 8;
+    for (int r0 = warp * RB; r0 < bx * by; r0 += BWD_WARPS * RB) {
+      float v[RB][3];
 #pragma unroll
-    for (int a = 0; a < W; ++a) {
-      const int xx = min(max(ux + a - (P - 1), 0), nx - 1);
+      for (int i = 0; i < RB; ++i) {
+        const int row = r0 + i;
+        const int a = row / by, b = row - a * by;
+        const int ux = X0 - q + a, uy = Y0 - q + b;
+        const bool in = row < bx * by && ux >= 0 && ux < nx && uy >= 0 && uy < ny;
+        const float* src = in ? xv + ((long long)ux * ny + uy) * nz : xv;
 #pragma unroll
-      for (int b = 0; b < W; ++b) {
-        const int yy = min(max(uy + b - (P - 1), 0), ny - 1);
-        const float* row = xc + ((long long)xx * ny + yy) * nz;
-#pragma unroll
-        for (int e = 0; e < W; ++e) nb[a][b][e] = row[min(max(uz + e - (P - 1), 0), nz - 1)];
-      }
-    }
-    // the window starting at u - (P-1) + (a, b, e), a compile-time offset,
-    // so the neighbourhood stays in registers; its fragment is o = start % P
-    float g[P][P][P];
-#pragma unroll
-    for (int a = 0; a < P; ++a)
-#pragma unroll
-      for (int b = 0; b < P; ++b)
-#pragma unroll
-        for (int e = 0; e < P; ++e) {
-          const int sx = ux + a - (P - 1), sy = uy + b - (P - 1), sz = uz + e - (P - 1);
-          const bool valid = sx >= 0 && sy >= 0 && sz >= 0 && sx / P < mx && sy / P < my &&
-                             sz / P < mz;
-          float best = nb[a][b][e];
-          int arg = 0;
-#pragma unroll
-          for (int d = 1; d < P3; ++d) {
-            const float v = nb[a + d / (P * P)][b + (d / P) % P][e + d % P];
-            if (v > best) {
-              best = v;
-              arg = d;
-            }
-          }
-          // u is tap ((P-1-a)*P + P-1-b)*P + P-1-e of this window
-          const bool win = valid && arg == ((P - 1 - a) * P + P - 1 - b) * P + P - 1 - e;
-          g[a][b][e] = won(gy, s, c, f, P3, valid ? ((sx % P) * P + sy % P) * P + sz % P : 0,
-                           m3, my, mz, sx / P, sy / P, sz / P, win);
-        }
-    // sum in the order of o, as the plain version does: fragment o's window
-    // on an axis starts at offset (u - o_axis) % P below u
-#pragma unroll
-    for (int o = 0; o < P3; ++o) {
-      const int ax = P - 1 - (((ux - o / (P * P)) % P + P) % P);
-      const int bx = P - 1 - (((uy - (o / P) % P) % P + P) % P);
-      const int ex = P - 1 - (((uz - o % P) % P + P) % P);
-      float v = 0.f;
-#pragma unroll
-      for (int a = 0; a < P; ++a)
-#pragma unroll
-        for (int b = 0; b < P; ++b)
-#pragma unroll
-          for (int e = 0; e < P; ++e)
-            if (a == ax && b == bx && e == ex) v = g[a][b][e];
-      acc += v;
-    }
-  } else {
-    const int p = p_rt, p3 = p * p * p;
-    for (int o = 0; o < p3; ++o) {
-      const int ox = o / (p * p), oy = (o / p) % p, oz = o % p;
-      const int rx = ux - ox, ry = uy - oy, rz = uz - oz;
-      if (rx < 0 || ry < 0 || rz < 0) continue;
-      const int vx = rx / p, vy = ry / p, vz = rz / p;
-      if (vx >= mx || vy >= my || vz >= mz) continue;
-      const int wx = ox + p * vx, wy = oy + p * vy, wz = oz + p * vz;  // first tap
-      float best = 0.f;
-      int arg = 0;
-      for (int d = 0; d < p3; ++d) {
-        const int dx = d / (p * p), dy = (d / p) % p, dz = d % p;
-        const float v = xc[((long long)(wx + dx) * ny + wy + dy) * nz + wz + dz];
-        if (d == 0 || v > best) {
-          best = v;
-          arg = d;
+        for (int k = 0; k < 3; ++k) {
+          const int e = lane + 32 * k, uz = Z0 - q + e;
+          v[i][k] = in && e < bz && uz >= 0 && uz < nz ? __ldg(src + uz) : 0.f;
         }
       }
-      acc += won(gy, s, c, f, p3, o, m3, my, mz, vx, vy, vz,
-                 arg == ((ux - wx) * p + uy - wy) * p + uz - wz);
+#pragma unroll
+      for (int i = 0; i < RB; ++i)
+#pragma unroll
+        for (int k = 0; k < 3; ++k)
+          if (r0 + i < bx * by && lane + 32 * k < bz) xs[(r0 + i) * bz + lane + 32 * k] = v[i][k];
     }
   }
-  gx[i] = acc;
+  // each fragment's rows of windows: the first window's first tap in the box
+  for (int e = tid; e < p3 * rmax; e += BWD_THREADS) {
+    const int o = e / rmax, row = e - o * rmax;
+    int vx0, vy0, vz0, wx, wy, wz;
+    windows(o, vx0, vy0, vz0, wx, wy, wz);
+    if (row < wx * wy) {
+      const int ix = row / wy, iy = row - ix * wy;
+      rows[e] = ((o / (p * p) + p * (vx0 + ix) - X0 + q) * by + (o / p) % p +
+                 p * (vy0 + iy) - Y0 + q) * bz + o % p + p * vz0 - Z0 + q;
+      gyrows[e] = ((vx0 + ix) * my + vy0 + iy) * mz + vz0;
+    }
+  }
+  for (int e = tid; e < box; e += BWD_THREADS) gs[e] = 0.f;
+  __syncthreads();
+
+  const long long m3 = (long long)mx * my * mz;
+  // fragment by fragment, in the order of o: a warp takes rows of the
+  // fragment's windows, its lanes consecutive vz (several rows a warp when
+  // a row holds fewer than 32 windows).  Each window's gy goes to its first
+  // maximum's place in the box; where that lies in the halo it is another
+  // tile's, and never written out.
+  for (int o = 0; o < p3; ++o) {
+    int vx0, vy0, vz0, wx, wy, wz;
+    windows(o, vx0, vy0, vz0, wx, wy, wz);
+    const float* gyo = gy + ((s * p3 + o) * f + c) * m3;
+    const int* gro = gyrows + o * rmax;
+    const int* ro = rows + o * rmax;
+    const int rpw = wz >= 32 || wz == 0 ? 1 : 32 / wz;  // rows a warp takes at once
+    const int lr = wz >= 32 || wz == 0 ? 0 : lane / wz;
+    const int iz0 = lane - lr * wz, zstep = wz >= 32 ? 32 : wz;
+    for (int row = warp * rpw + lr; lr < rpw && row < wx * wy; row += BWD_WARPS * rpw) {
+      const int r0 = ro[row];
+      const float* grow = gyo + gro[row];
+      for (int iz = iz0; iz < wz; iz += zstep) {
+        const int w0 = r0 + p * iz;
+        float best = xs[w0];
+        int at = w0;
+        if constexpr (P > 0) {
+#pragma unroll
+          for (int d = 1; d < P * P * P; ++d) {
+            const int t = w0 + (d / (P * P)) * by * bz + ((d / P) % P) * bz + d % P;
+            const float v = xs[t];
+            if (v > best) {
+              best = v;
+              at = t;
+            }
+          }
+        } else {
+          for (int d = 1; d < p3; ++d) {
+            const int t = w0 + (d / (p * p)) * by * bz + ((d / p) % p) * bz + d % p;
+            const float v = xs[t];
+            if (v > best) {
+              best = v;
+              at = t;
+            }
+          }
+        }
+        gs[at] += grow[iz];
+      }
+    }
+    __syncthreads();
+  }
+
+  // the tile's own voxels, written once
+  float* gxv = gx + sc * nx * (long long)ny * nz;
+  for (int row = warp; row < tx * ty; row += BWD_WARPS) {
+    const int a = row / ty, b = row - a * ty;
+    const int ux = X0 + a, uy = Y0 + b;
+    if (ux >= nx || uy >= ny) continue;
+    float* dst = gxv + ((long long)ux * ny + uy) * nz + Z0;
+    const float* src = gs + ((a + q) * by + b + q) * bz + q;
+    for (int e = lane; e < tz && Z0 + e < nz; e += 32) dst[e] = src[e];
+  }
+}
+
+template <int P>
+int launch_bwd(const float* x, const float* gy, float* gx, int f, int nx, int ny, int nz,
+               int p, int mx, int my, int mz, const BwdTiles& t, long long blocks,
+               cudaStream_t stream) {
+  if (t.smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        mpf_pool_bwd_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)t.smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  mpf_pool_bwd_kernel<P><<<(unsigned)blocks, BWD_THREADS, t.smem, stream>>>(
+      x, gy, gx, f, nx, ny, nz, p, mx, my, mz, t.tx, t.ty, t.tz, t.ntx, t.nty, t.ntz, t.rmax);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -346,16 +427,13 @@ extern "C" int mpf_pool_bwd_f32(const float* x, const float* gy, float* gx, int 
                                 int nx, int ny, int nz, int p, int mx, int my, int mz,
                                 void* stream) {
   if (p < 1) return (int)cudaErrorInvalidValue;
-  const long long total = (long long)S * f * nx * ny * nz;
-  if (total <= 0) return (int)cudaGetLastError();
-  const long long blocks = (total + BWD_THREADS - 1) / BWD_THREADS;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  if ((long long)S * f * nx * ny * nz <= 0) return (int)cudaGetLastError();
+  const BwdTiles t = bwd_tiles(nx, ny, nz, p);
+  const long long blocks = (long long)S * f * t.ntx * t.nty * t.ntz;
+  if (blocks > 0x7fffffffLL || t.smem > 227 * 1024 || t.tz + 2 * (p - 1) > 96 ||
+      (long long)mx * my * mz >= (1LL << 31))
+    return (int)cudaErrorInvalidConfiguration;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (p == 2)
-    mpf_pool_bwd_kernel<2><<<(unsigned)blocks, BWD_THREADS, 0, st>>>(
-        x, gy, gx, f, nx, ny, nz, p, mx, my, mz, total);
-  else
-    mpf_pool_bwd_kernel<0><<<(unsigned)blocks, BWD_THREADS, 0, st>>>(
-        x, gy, gx, f, nx, ny, nz, p, mx, my, mz, total);
-  return (int)cudaGetLastError();
+  if (p == 2) return launch_bwd<2>(x, gy, gx, f, nx, ny, nz, p, mx, my, mz, t, blocks, st);
+  return launch_bwd<0>(x, gy, gx, f, nx, ny, nz, p, mx, my, mz, t, blocks, st);
 }

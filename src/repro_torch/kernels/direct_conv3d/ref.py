@@ -6,8 +6,9 @@ kernel it replaces: for each kernel offset (dx, dy, dz), accumulate
 window shifted by that offset.  ``conv3d_dgrad`` and ``conv3d_wgrad``:
 its input and weight gradients, the same loop over offsets.
 ``conv3d_tiled``: the CUDA kernel's own decomposition
-(csrc/direct_conv3d.cu) replayed for the tests, and ``conv3d_wgrad_chunked``
-the weight-gradient kernel's (csrc/conv3d_wgrad.cu).
+(csrc/direct_conv3d.cu) replayed for the tests, and ``conv3d_wgrad_mma``
+the weight-gradient kernel's (csrc/conv3d_wgrad.cu), with ``tf32_round``,
+the 3xTF32 split's rounding.
 """
 
 from __future__ import annotations
@@ -255,86 +256,136 @@ def conv3d_tiled(x: torch.Tensor, w: torch.Tensor, *, blocks: int = 132,
 
 # The weight-gradient launcher's constants (csrc/conv3d_wgrad.cu), mirrored
 # by the replay below
-WGRAD_JT, WGRAD_IT, WGRAD_DZ, WGRAD_ZT = 4, 4, 3, 8
-WGRAD_THREADS, WGRAD_SMEM_MAX = 256, 100 * 1024
+WGRAD_WARPS, WGRAD_MW, WGRAD_KMAX, WGRAD_SMEM_MAX = 8, 2, 256, 110 * 1024
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` in plain PyTorch: float32 rounded to 10
+    mantissa bits, to nearest with ties away from zero; inf and nan pass
+    through."""
+    x = x.to(torch.float32)
+    bits = x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    r = ((bits + 0x1000) & 0xFFFFE000).to(torch.int64)
+    r = torch.where(r >= 1 << 31, r - (1 << 32), r).to(torch.int32).view(torch.float32)
+    return torch.where(torch.isnan(x), x, r)
+
+
+def tf32_split(a: torch.Tensor):
+    """The 3xTF32 split: hi = tf32(a), lo = tf32(a - hi)."""
+    hi = tf32_round(a)
+    return hi, tf32_round(a - hi)
+
+
+def _x_pitch(nz: int) -> int:
+    def near(v):
+        return v % 32 < 6 or v % 32 > 26
+
+    p = nz
+    while near(p) or near(2 * p):
+        p += 1
+    return p
 
 
 def wgrad_plan(S, f, fp, k, npn, sms: int = 132):
-    """``wgrad_plan`` of conv3d_wgrad.cu: the block's channel groups, rows
-    and padded rows, the items and their chunks; None when no tile fits."""
+    """``wgrad_plan`` of conv3d_wgrad.cu: the block's tile (BM rows of
+    (i, dx, dy, dz), BN output channels: the narrowest of 8, 16, 40, 80
+    that covers f', or a narrower one when no item fits beside it), the
+    channels a tile's rows span, the x stage's row pitch, the item (TY rows,
+    or TX whole planes), its positions and padding, and the items' chunks;
+    None when nothing fits."""
     kx, ky, kz = k
     npx, npy, npz = npn
-    tzg = -(-kz // WGRAD_DZ)
-    tg = kx * ky * tzg
-    if tg > WGRAD_THREADS:
+    k3 = kx * ky * kz
+    M = f * k3
+    if M >= 1 << 31:
         return None
-    budget = WGRAD_THREADS // tg
-    jneed, ineed = -(-fp // WGRAD_JT), -(-f // WGRAD_IT)
-    root = math.isqrt(budget)
-    JG = min(jneed, root)
-    IG = min(ineed, budget // JG)
-    JG = min(jneed, budget // IG)
-    Zp = -(-npz // WGRAD_ZT) * WGRAD_ZT
-    XR = Zp + WGRAD_DZ * tzg
-    for TY in range(min(npy, 8), 0, -1):
-        gpitch = TY * Zp + 4
-        smem = 4 * (JG * WGRAD_JT * gpitch + IG * WGRAD_IT * kx * (TY + ky - 1) * XR)
-        if smem <= WGRAD_SMEM_MAX:
+    XP = _x_pitch(npz + kz - 1)
+    tiles = ((1, 1), (2, 1), (5, 1), (5, 2))
+    best = None
+    for NW, WN in tiles[:1 + (0 if fp <= 8 else 1 if fp <= 16 else 2 if fp <= 40 else 3)][::-1]:
+        BN, BM = 8 * NW * WN, 16 * WGRAD_MW * (WGRAD_WARPS // WN)
+        CI = min(f, (BM - 1) // k3 + 2)
+        for ty in range(1, npy + 1):
+            for tx in range(1, (npx if ty == npy else 1) + 1):
+                ki = tx * ty * npz
+                if ki > WGRAD_KMAX and ki > npz:
+                    break
+                kp = -(-ki // 8) * 8
+                smem = 4 * 2 * (BN * (kp + 4) + CI * (tx + kx - 1) * (ty + ky - 1) * XP) + 4 * kp
+                if smem > WGRAD_SMEM_MAX:
+                    break
+                if best is None or ki > best[2]:
+                    best = (ty, tx, ki, kp)
+        if best is not None:
             break
-    else:
+    if best is None:
         return None
-    nyt = -(-npy // TY)
-    items = S * npx * nyt
-    jtiles, itiles = -(-fp // (JG * WGRAD_JT)), -(-f // (IG * WGRAD_IT))
-    if jtiles * itiles > 65535:
+    TY, TX, KI, KP = best
+    nyg, nxg = -(-npy // TY), -(-npx // TX)
+    items = S * nxg * nyg
+    mtiles, ntiles = -(-M // BM), -(-fp // BN)
+    if mtiles * ntiles > 65535:
         return None
-    want = -(-4 * sms // (jtiles * itiles))
-    return dict(tzg=tzg, JG=JG, IG=IG, TY=TY, Zp=Zp, XR=XR, nyt=nyt, items=items,
-                jtiles=jtiles, itiles=itiles, C=max(1, min(want, items)), smem=smem)
+    return dict(BM=BM, BN=BN, mtiles=mtiles, ntiles=ntiles, CI=CI, XP=XP, TY=TY, TX=TX,
+                KI=KI, KP=KP, GP=KP + 4, nyg=nyg, nxg=nxg, items=items,
+                C=max(1, min(2 * sms // (mtiles * ntiles), items)))
 
 
-def conv3d_wgrad_chunked(x: torch.Tensor, g: torch.Tensor, k, *, sms: int = 132):
+def conv3d_wgrad_mma(x: torch.Tensor, g: torch.Tensor, k, *, sms: int = 132):
     """The weight-gradient kernel's decomposition in plain PyTorch, for the
-    tests: the items (s, x, TY output rows) cut into C chunks, each block's
-    tile of (JG*4 output, IG*4 input channels) staged with its rows padded
-    with zeros along z (g to Zp, x to XR), every (dx, dy, dz) summed over
-    the chunk's rows, the partials written for the valid (j, i, dz) only
-    and the C partials added in chunk order."""
+    tests: the items cut into C chunks; for each chunk and (BM x BN) tile
+    the item's two stages as the kernel fills them (g rows at pitch GP, x
+    rows of the channels the tile spans with their halo at pitch XP, zero
+    where the item or the volume ends), the A operand gathered from the x
+    stage at rowoff(m) + koff(k), each operand split into TF32 hi and lo,
+    the item's a_lo*b_hi + a_hi*b_lo + a_hi*b_hi added into the tile's
+    totals; then the C partials added in chunk order."""
     x, g = x.to(torch.float32), g.to(torch.float32)
     S, f, nx, ny, nz = x.shape
     fp = g.shape[1]
     k = tuple(int(a) for a in k)
-    npn = tuple(int(a) for a in g.shape[2:])
     kx, ky, kz = k
-    npx, npy, npz = npn
-    plan = wgrad_plan(S, f, fp, k, npn, sms)
+    npx, npy, npz = (int(a) for a in g.shape[2:])
+    plan = wgrad_plan(S, f, fp, k, (npx, npy, npz), sms)
     if plan is None:
         raise ValueError(f"no weight-gradient tile fits k {k}")
-    JT, IT = plan["JG"] * WGRAD_JT, plan["IG"] * WGRAD_IT
-    TY, Zp, XR, C = plan["TY"], plan["Zp"], plan["XR"], plan["C"]
-    dzs = plan["tzg"] * WGRAD_DZ
-    part = torch.full((C, fp, f) + k, float("nan"))
+    BM, BN, CI, XP, C = plan["BM"], plan["BN"], plan["CI"], plan["XP"], plan["C"]
+    TY, TX, KI, KP, GP = plan["TY"], plan["TX"], plan["KI"], plan["KP"], plan["GP"]
+    k3, M = kx * ky * kz, f * kx * ky * kz
+    yrows, planes = TY + ky - 1, TX + kx - 1
+    PS, CS = yrows * XP, planes * yrows * XP
+    kk = torch.arange(KP)
+    r = torch.div(kk, npz, rounding_mode="floor")
+    koff = torch.where(kk < KI, (r // TY) * PS + (r % TY) * XP + kk % npz, 0)
+    part = torch.full((C, fp, M), float("nan"))
     for c in range(C):
         it0, it1 = plan["items"] * c // C, plan["items"] * (c + 1) // C
-        for jt, it in itertools.product(range(plan["jtiles"]), range(plan["itiles"])):
-            j0, i0 = jt * JT, it * IT
-            nj, ni = min(JT, fp - j0), min(IT, f - i0)
-            acc = x.new_zeros((JT, IT, kx, ky, dzs))
+        for mt, nt in itertools.product(range(plan["mtiles"]), range(plan["ntiles"])):
+            m0, j0 = mt * BM, nt * BN
+            ilo = m0 // k3
+            nj, ni = min(BN, fp - j0), min(CI, f - ilo)
+            m = torch.arange(m0, m0 + BM)
+            i, t = m // k3, m % k3
+            roff = torch.where(m < M, (i - ilo) * CS + (t // (ky * kz)) * PS
+                               + (t // kz % ky) * XP + t % kz, 0)
+            tot = torch.zeros((BM, BN))
             for item in range(it0, it1):
-                tyi, rest = item % plan["nyt"], item // plan["nyt"]
-                px, s = rest % npx, rest // npx
-                py0 = tyi * TY
-                tyn = min(TY, npy - py0)
-                gs = x.new_zeros((JT, TY, Zp))
-                gs[:nj, :tyn, :npz] = g[s, j0:j0 + nj, px, py0:py0 + tyn]
-                xs = x.new_zeros((IT, kx, TY + ky - 1, XR))
-                xs[:ni, :, :tyn + ky - 1, :nz] = x[s, i0:i0 + ni, px:px + kx,
-                                                    py0:py0 + tyn + ky - 1]
-                for dx, dy, dz in itertools.product(range(kx), range(ky), range(dzs)):
-                    acc[:, :, dx, dy, dz] += torch.einsum(
-                        "jrz,irz->ji", gs[:, :tyn], xs[:, dx, dy:dy + tyn, dz:dz + Zp])
-            part[c, j0:j0 + nj, i0:i0 + ni] = acc[:nj, :ni, :, :, :kz]
-    dw = torch.zeros((fp, f) + k)
+                yg, rest = item % plan["nyg"], item // plan["nyg"]
+                xg, s = rest % plan["nxg"], rest // plan["nxg"]
+                py0, px0 = yg * TY, xg * TX
+                tyn, txn = min(TY, npy - py0), min(TX, npx - px0)
+                gs = torch.zeros((BN, GP))
+                gs[:nj, :KI].view(nj, TX, TY, npz)[:, :txn, :tyn] = \
+                    g[s, j0:j0 + nj, px0:px0 + txn, py0:py0 + tyn]
+                xs = torch.zeros((CI, planes, yrows, XP))
+                xs[:ni, :txn + kx - 1, :tyn + ky - 1, :nz] = \
+                    x[s, ilo:ilo + ni, px0:px0 + txn + kx - 1, py0:py0 + tyn + ky - 1]
+                a = xs.reshape(-1)[roff[:, None] + koff[None, :]]  # (BM, KP)
+                b = gs[:, :KP]                                      # (BN, KP)
+                (ah, al), (bh, bl) = tf32_split(a), tf32_split(b)
+                tot += al @ bh.T + ah @ bl.T + ah @ bh.T
+            part[c, j0:j0 + nj, m0:min(m0 + BM, M)] = tot[:min(BM, M - m0), :nj].T
+    dw = torch.zeros((fp, M))
     for c in range(C):
         dw = dw + part[c]
-    return dw
+    return dw.reshape((fp, f) + k)

@@ -1,7 +1,7 @@
 """Plain PyTorch versions of MPF: all p³ offset poolings, fragments into
 batch, and the gradient of the pool (``mpf_pool_bwd``); the CUDA kernels'
 pass structures replayed for the tests (``mpf_pool_sliding``,
-``mpf_pool_bwd_gather``)."""
+``mpf_pool_bwd_tiled``)."""
 
 from __future__ import annotations
 
@@ -76,52 +76,69 @@ def mpf_pool_sliding(x: torch.Tensor, p: int, window=None) -> torch.Tensor:
     return M.permute(0, 3, 5, 7, 1, 2, 4, 6).reshape(S * p**3, f, *m)
 
 
-def mpf_pool_bwd_gather(x: torch.Tensor, gy: torch.Tensor, p: int) -> torch.Tensor:
-    """The gradient kernel's structure (csrc/mpf_pool.cu, p known at
-    compile time) in plain PyTorch, for the tests.
+# The gradient kernel's tile constants (csrc/mpf_pool.cu), mirrored by the
+# replay below
+BWD_TXY, BWD_TZMAX = 8, 62
 
-    Every voxel u at once: its (2p-1)³ neighbourhood, clamped into x (a
-    replicate pad); for each of the p³ windows that may hold it, at offset
-    (a, b, e) in [0, p)³ (the window starts at u - (p-1) + (a, b, e)), the
-    first maximum of its taps, whether u won it, and the gradient it then
-    takes from gy; then those gradients added in fragment order, fragment
-    o's window on an axis being the one at offset p-1 - ((u - o) mod p).
+
+def bwd_tiles(n, p: int):
+    """``bwd_tiles`` of csrc/mpf_pool.cu: the tile extents (tx, ty, tz),
+    multiples of p, and the tile counts along each axis."""
+    nx, ny, nz = n
+    txy = -(-BWD_TXY // p) * p
+    cuts = -(-nz // BWD_TZMAX)
+    tz = -(-(-(-nz // cuts)) // p) * p
+    return (txy, txy, tz), (-(-nx // txy), -(-ny // txy), -(-nz // tz))
+
+
+def mpf_pool_bwd_tiled(x: torch.Tensor, gy: torch.Tensor, p: int) -> torch.Tensor:
+    """The gradient kernel's structure (csrc/mpf_pool.cu) in plain PyTorch,
+    for the tests.
+
+    Tile by tile (every (s, c) at once): a box of x, the tile and a (p-1)
+    halo on each side, zero outside the volume, and a zeroed gx box of the
+    same extent; then, for each fragment o in order, the windows of o that
+    touch the tile (on an axis v from U0/p - (o > 0) to U0/p + T/p - 1,
+    within [0, m)), each window's first maximum in tap order found once,
+    and its gy added to the gx box there (in the halo too: scratch); last
+    the box's tile written where it lies in the volume.
     """
     S, f, nx, ny, nz = x.shape
     m = (nx // p, ny // p, nz // p)
-    P3 = p**3
-    q = p - 1
-    xp = torch.nn.functional.pad(x, (q, q, q, q, q, q), mode="replicate")
-
-    def tap(a, b, e):  # x[u - (p-1) + (a, b, e)], clamped
-        return xp[:, :, a:a + nx, b:b + ny, e:e + nz]
-
-    u = [torch.arange(n).reshape(sh) for n, sh in
-         zip((nx, ny, nz), ((nx, 1, 1), (1, ny, 1), (1, 1, nz)))]
-    s_idx = torch.arange(S).reshape(S, 1, 1, 1, 1)
-    c_idx = torch.arange(f).reshape(1, f, 1, 1, 1)
-    won = {}
-    for a, b, e in itertools.product(range(p), repeat=3):
-        st = [ui + off - q for ui, off in zip(u, (a, b, e))]
-        valid = torch.ones((nx, ny, nz), dtype=torch.bool)
-        for si, mi in zip(st, m):
-            valid = valid & (si >= 0) & (si // p < mi)
-        best, arg = tap(a, b, e), torch.zeros(x.shape, dtype=torch.long)
-        for d in range(1, P3):
-            v = tap(a + d // (p * p), b + (d // p) % p, e + d % p)
-            arg = torch.where(v > best, torch.full_like(arg, d), arg)
-            best = torch.maximum(best, v)
-        win = valid & (arg == ((q - a) * p + q - b) * p + q - e)
-        sc = [si.clamp(min=0) for si in st]
-        o = (sc[0] % p) * p * p + (sc[1] % p) * p + sc[2] % p
-        v_ = [(si // p).clamp(max=mi - 1) for si, mi in zip(sc, m)]
-        g = gy[s_idx * P3 + o, c_idx, v_[0], v_[1], v_[2]]
-        won[a, b, e] = torch.where(win, g, torch.zeros_like(g))
-    acc = torch.zeros_like(x)
-    for o, (ox, oy, oz) in enumerate(itertools.product(range(p), repeat=3)):
-        off = [q - (ui - oi) % p for ui, oi in zip(u, (ox, oy, oz))]
-        v = torch.zeros_like(x)
-        for (a, b, e), g in won.items():
-            v = torch.where((off[0] == a) & (off[1] == b) & (off[2] == e), g, v)
-        acc = acc + v
-    return acc
+    P3, q = p**3, p - 1
+    T, nt = bwd_tiles((nx, ny, nz), p)
+    n = (nx, ny, nz)
+    B = tuple(e + 2 * q for e in T)
+    gy = gy.reshape(S, P3, f, *m)
+    gx = torch.empty_like(x)
+    taps = list(itertools.product(range(p), repeat=3))
+    for tile in itertools.product(*(range(k) for k in nt)):
+        U0 = [t * e for t, e in zip(tile, T)]
+        lo = [u - q for u in U0]
+        box = x.new_zeros((S, f) + B)
+        src = [slice(max(a, 0), min(a + e, ni)) for a, e, ni in zip(lo, B, n)]
+        dst = [slice(sl.start - a, sl.stop - a) for sl, a in zip(src, lo)]
+        box[(slice(None), slice(None), *dst)] = x[(slice(None), slice(None), *src)]
+        gs = x.new_zeros((S, f) + B)
+        for o, off in enumerate(taps):
+            v = [torch.arange(max(0, u // p - (oo > 0)), min(mi, u // p + e // p))
+                 for u, oo, mi, e in zip(U0, off, m, T)]
+            if any(len(vi) == 0 for vi in v):
+                continue
+            # each window's first tap, in the box
+            b0 = [oo + p * vi - u + q for oo, vi, u in zip(off, v, U0)]
+            idx = [b0[0][:, None, None], b0[1][None, :, None], b0[2][None, None, :]]
+            best, arg = box[:, :, idx[0], idx[1], idx[2]], torch.zeros((), dtype=torch.long)
+            for d in range(1, P3):
+                t = box[:, :, idx[0] + taps[d][0], idx[1] + taps[d][1], idx[2] + taps[d][2]]
+                arg = torch.where(t > best, d, arg)
+                best = torch.maximum(best, t)
+            gv = gy[:, o][:, :, v[0][:, None, None], v[1][None, :, None], v[2][None, None, :]]
+            at = (((idx[0] + arg // (p * p)) * B[1] + idx[1] + arg // p % p) * B[2]
+                  + idx[2] + arg % p)
+            gs.view(S, f, -1).scatter_add_(2, at.expand(gv.shape).reshape(S, f, -1),
+                                           gv.reshape(S, f, -1))
+        reg = [slice(u, min(u + e, ni)) for u, e, ni in zip(U0, T, n)]
+        gx[(slice(None), slice(None), *reg)] = gs[
+            :, :, q:q + reg[0].stop - U0[0], q:q + reg[1].stop - U0[1], q:q + reg[2].stop - U0[2]]
+    return gx

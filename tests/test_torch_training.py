@@ -6,7 +6,7 @@ n337-shaped net at 4 maps, the same numpy params and input in both.
 The hand-written backward (``Conv3dFn``, ``MpfPoolFn``) runs here on its
 CPU route, checked by ``gradcheck`` in float64, and the CUDA backward
 kernels' decompositions, replayed in plain PyTorch
-(``ref.conv3d_wgrad_chunked``, ``ref.mpf_pool_bwd_gather``), against the
+(``ref.conv3d_wgrad_mma``, ``ref.mpf_pool_bwd_tiled``), against the
 reference's gradients; the kernels themselves are held against the plain
 versions on the card (``chip_smoke.py``'s train phase).  Then AdamW, the
 schedule, the data pipeline and checkpoints.
@@ -218,14 +218,20 @@ def test_mpf_pool_bwd_takes_the_first_maximum():
 @pytest.mark.parametrize("S,f,fp,n,k,sms", [
     (2, 1, 9, (9, 8, 11), (2, 2, 2), 2),     # f = 1, as n337's layer 0
     (3, 6, 3, (6, 7, 12), (3, 3, 3), 2),     # f' = 3, as its last layer
-    (2, 5, 7, (5, 9, 13), (3, 2, 4), 1),     # anisotropic k: two dz groups
-    (1, 3, 4, (12, 12, 12), (9, 9, 9), 3),   # n926's k: 243 tap groups
-    (1, 24, 24, (5, 19, 9), (3, 3, 3), 2),   # 2 x 2 channel tiles, 3 row tiles
+    (2, 5, 7, (5, 9, 13), (3, 2, 4), 1),     # anisotropic k
+    (1, 3, 4, (12, 12, 12), (9, 9, 9), 3),   # n926's k: 729 taps a channel, 9 row tiles
+    (1, 24, 24, (5, 19, 9), (3, 3, 3), 3),   # 3 row tiles of 256, 40 columns
+    (1, 6, 88, (5, 6, 7), (3, 3, 3), 2),     # 2 x 2 tiles: f*k^3 > 128 rows, f' > 80
+    (2, 5, 13, (7, 8, 9), (3, 3, 3), 4),     # f*k^3 = 135 rows of a 256 tile, f' = 13
+    (3, 7, 20, (6, 10, 6), (2, 3, 2), 3),    # whole-plane items, f' = 20 of 40 columns
+    (2, 2, 5, (4, 40, 30), (2, 2, 2), 2),    # a partial row item, 30 items in 4 chunks
+    (1, 1, 80, (4, 5, 301), (2, 2, 2), 2),   # rows of 300 positions: 40-column tiles
 ])
-def test_conv3d_wgrad_chunked_matches_reference(S, f, fp, n, k, sms):
-    """``conv3d_wgrad.cu``'s chunks, channel tiles and zero padding, replayed,
-    give the reference's weight gradient (``jax.vjp`` of its ``conv3d``, XLA
-    path) at its conv tolerance, ``atol=1e-3, rtol=1e-4``."""
+def test_conv3d_wgrad_mma_matches_reference(S, f, fp, n, k, sms):
+    """``conv3d_wgrad.cu``'s plan, chunks, tiles, stages and 3xTF32 split,
+    replayed, give the reference's weight gradient (``jax.vjp`` of its
+    ``conv3d``, XLA path) at its conv tolerance, ``atol=1e-3, rtol=1e-4``;
+    K is cut into more than one chunk wherever it holds more than one item."""
     rng = np.random.default_rng(7 * S + f + fp)
     x = rng.normal(size=(S, f) + n).astype(np.float32)
     w = rng.normal(size=(fp, f) + k).astype(np.float32)
@@ -234,24 +240,55 @@ def test_conv3d_wgrad_chunked_matches_reference(S, f, fp, n, k, sms):
     _, vjp = jax.vjp(lambda ww: jax_conv3d.conv3d(jnp.asarray(x), ww, use_pallas=False),
                      jnp.asarray(w))
     (want,) = vjp(jnp.asarray(g))
-    assert conv_ref.wgrad_plan(S, f, fp, k, npn, sms)["C"] > 1
-    got = conv_ref.conv3d_wgrad_chunked(torch.from_numpy(x), torch.from_numpy(g), k, sms=sms)
+    plan = conv_ref.wgrad_plan(S, f, fp, k, npn, sms)
+    assert plan["C"] > 1 or plan["items"] == 1
+    got = conv_ref.conv3d_wgrad_mma(torch.from_numpy(x), torch.from_numpy(g), k, sms=sms)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-3, rtol=1e-4)
 
 
-@pytest.mark.parametrize("p,n", [(2, (7, 9, 5)), (2, (3, 5, 3)), (3, (8, 5, 11))])
-def test_mpf_pool_bwd_gather_matches_reference(p, n):
-    """The gradient kernel's gather, replayed: bitwise equal to the plain
+def test_tf32_round():
+    """``tf32_round`` is ``cvt.rna.tf32.f32``: 10 mantissa bits kept, ties
+    away from zero, inf and nan through; hi + tf32(x - hi) gives x back to
+    2^-22 of it."""
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=4096).astype(np.float32)
+                         * np.float32(1e3))
+    hi = conv_ref.tf32_round(x)
+    assert torch.all((hi.view(torch.int32) & 0x1FFF) == 0)
+    assert torch.all((hi - x).abs() <= x.abs() * 2.0**-11)
+    lo = conv_ref.tf32_round(x - hi)
+    assert torch.all(((hi + lo) - x).abs() <= x.abs() * 2.0**-22)
+    # ties: 1 + 2^-11 lies halfway between 1 and 1 + 2^-10
+    one = 1.0 + 2.0**-11
+    t = torch.tensor([one, -one, 1.0 + 3 * 2.0**-11, 1.0 + 2.0**-12], dtype=torch.float32)
+    want = torch.tensor([1.0 + 2.0**-10, -(1.0 + 2.0**-10), 1.0 + 2.0**-9, 1.0])
+    assert torch.equal(conv_ref.tf32_round(t), want)
+    special = torch.tensor([float("inf"), -float("inf"), float("nan"), 0.0, -0.0])
+    got = conv_ref.tf32_round(special)
+    assert torch.equal(got[:2], special[:2]) and torch.isnan(got[2])
+    assert torch.equal(got[3:].view(torch.int32), special[3:].view(torch.int32))
+
+
+@pytest.mark.parametrize("p,n", [(2, (7, 9, 5)), (2, (3, 5, 3)), (3, (8, 5, 11)),
+                                 # tiles (8, 8, <=62; 9 for p = 3) cut windows of
+                                 # every fragment on every axis
+                                 (2, (17, 11, 71)), (3, (11, 14, 71))])
+def test_mpf_pool_bwd_tiled_matches_reference(p, n):
+    """The gradient kernel's tiles, replayed: bitwise equal to the plain
     version, and on tie-free inputs equal to the reference's gradient
-    (``jax.vjp`` of its ``mpf_pool``, XLA path) up to the order of a
-    voxel's few sums (``rtol=1e-6``)."""
+    (``jax.vjp`` of its ``mpf_pool``, XLA path) at ``rtol=1e-6,
+    atol=1e-6``.  gy holds multiples of 1/64 in [-1, 1], so a voxel's sum of
+    up to p³ window gradients is exact in fp32 in any order: the comparison
+    sees where each window's gradient goes, not the two packages' orders of
+    addition (at p = 3 a voxel sums up to 27 of them)."""
     numel = 2 * 3 * n[0] * n[1] * n[2]
     x = (np.random.default_rng(p).permutation(numel).astype(np.float32) / numel).reshape(
         (2, 3) + n)
     y, vjp = jax.vjp(lambda xx: jax_mpf.mpf_pool(xx, p, use_pallas=False), jnp.asarray(x))
-    gy = np.random.default_rng(p + 1).normal(size=y.shape).astype(np.float32)
+    gy = (np.random.default_rng(p + 1).integers(-64, 65, size=y.shape) / 64).astype(np.float32)
     (want,) = vjp(jnp.asarray(gy))
-    got = pool_ref.mpf_pool_bwd_gather(torch.from_numpy(x), torch.from_numpy(gy), p)
+    if n[0] > 9:  # the tiles cut windows along every axis
+        assert min(pool_ref.bwd_tiles(n, p)[1]) > 1
+    got = pool_ref.mpf_pool_bwd_tiled(torch.from_numpy(x), torch.from_numpy(gy), p)
     assert torch.equal(got, pool_ref.mpf_pool_bwd(torch.from_numpy(x), torch.from_numpy(gy), p))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
 
