@@ -104,7 +104,19 @@ Phases, in order; any failure makes the exit code non-zero:
 5. The plain-pool path: ``tiled_apply`` on ``bench-net`` with the
    ``use_mpf=False`` plan's primitives (P=4: 64 shifted passes a patch),
    held against the dense oracle.
-6. Training on the card (``run_train``), after the ZNNi phases' memory is
+6. The other three Table III nets (``run_znni_nets``): ``n537``, ``n726``
+   and ``n926`` at full width (80 maps, every layer, random weights from a
+   seed), each planned on ``H100_SXM`` with the deployed reuse mix
+   (``plan_fixed``; m lowered while the planner finds the point
+   infeasible, its ``InfeasiblePoint``s printed) and printed beside
+   ``plan_single``; ``check_kernels`` on the compiled plan (the layer-0
+   segment kernel at k = 4, 6, 8, the MADs and the pool at each net's own
+   shapes, untimed); then one volume of two cores along x served through
+   ``VolumeEngine`` with ``fuse_os`` and held against the dense oracle,
+   with m, batch, vox/s, the ledger peak beside ``max_memory_allocated``
+   and the launch counts.  Last, ``plan_hetero(n726, (Xeon, H100_SXM))``
+   beside each device's ``plan_single``, priced only.
+7. Training on the card (``run_train``), after the ZNNi phases' memory is
    freed:
    a. The backward kernels against their plain versions: the input
       gradient (through the ``conv3d`` kernel) and ``conv3d_wgrad``
@@ -146,7 +158,7 @@ Phases, in order; any failure makes the exit code non-zero:
    d. The ``seg-net`` example's 200 steps; its loss must fall.
    e. ``quickstart``, ``serve_volume`` and ``pipeline_inference`` (its
       two ranks) on the card.
-7. The LM serving path, after the ZNNi and training phases' memory is
+8. The LM serving path, after the ZNNi and training phases' memory is
    freed:
    a. ``decode_attn`` against its plain version at the served shapes
       (B 8, S 2048, Hkv 8, G 5, d 128, bf16, one length above S), in f32,
@@ -163,7 +175,21 @@ Phases, in order; any failure makes the exit code non-zero:
       in a plain ``forward`` (chunked attention, no decode kernel) of
       prompt + generated tokens, and one ``decode_step`` on a fixed cache
       with the kernel against one with the plain version.
-8. Print the kernels' JSON line (ten entries: the eight Pallas
+   d. The MoE, Mamba2 and local/global archs (``run_lm_archs``):
+      ``mamba2-2.7b``, ``phi3-medium-14b``, ``gemma3-27b``,
+      ``mixtral-8x7b``, ``grok-1-314b`` and ``jamba-v0.1-52b`` at full
+      width, bf16, each at the most layers that fit on the card
+      (``fit_depth``; the cut printed), ``decode_attn`` first held
+      against its plain version at the arch's served shapes, then served
+      (4 slots, 6 requests) and checked as in b–c, its decode tick timed
+      on the host and profiled on the device; ``decode_attn`` launched
+      once a global-attention layer and tick.  The MoE archs route
+      drop-free (capacity factor = experts) and are held against the
+      forward routed as the served decode routed, their router logits
+      within ``ROUTER_TOL`` of the served ones (``check_lm``).  Then
+      one 8-layer jamba pattern served in bf16 and in f32: the router
+      gap must close in f32.
+9. Print the kernels' JSON line (ten entries: the eight Pallas
    counterparts, then ``conv3d_wgrad`` and ``mpf_pool_bwd`` with
    ``replaces`` null), then, as the last line,
    ``{"ok": true, "device": {...}}``.
@@ -171,6 +197,8 @@ Phases, in order; any failure makes the exit code non-zero:
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -316,8 +344,10 @@ def _check_mad(smoke, label, X, W, got, want):
     return max(err, err_dc)
 
 
-def check_kernels(smoke, ex, plan, device, gen):
-    """Phase 2: every kernel vs its plain version at the plan's shapes."""
+def check_kernels(smoke, ex, plan, device, gen, timed=True):
+    """Phase 2: every kernel vs its plain version at the plan's shapes;
+    with ``timed``, each timed beside its plain version, bound and library
+    call."""
     import torch
 
     from repro_torch.core.overlap_save import os_input_spectra, tail_segments
@@ -367,15 +397,32 @@ def check_kernels(smoke, ex, plan, device, gen):
     dft_flops = (8.0 * NQ * fp * s * A * B * Cb + 8.0 * NQ * fp * s * oy * B * Cb
                  + 4.0 * NQ * fp * s * oy * Cb * spec.out[2])
     r = results["os_segment"]
+    r["bound_ms"], r["bound_by"] = bound(nbytes, flops)
+    r["library_ms"] = None
+    if not timed:
+        del out, F, Ft
+        return _check_mads_and_pool(smoke, ex, plan, device, randn, results, timed)
     r["ms"] = time_ms(lambda: seg_ops.os_segment_fused(F, W0, b0, spec), device)
     r["plain_ms"] = time_ms(
         lambda: seg_ops.os_segment_fused(F, W0, b0, spec, use_kernels=False),
         device, reps=2)
-    r["bound_ms"], r["bound_by"] = bound(nbytes, flops)
-    r["library_ms"] = None
     print(f"os_segment: the kernel's own matmul-DFT inverse is {dft_flops / 1e9:.1f} "
           f"GFLOP ({dft_flops / PEAK_FP32 * 1e3:.3f} ms at the fp32 peak); the "
           f"function needs {flops / 1e9:.1f} GFLOP and {nbytes / 1e9:.3f} GB", flush=True)
+    del out, F, Ft
+    return _check_mads_and_pool(smoke, ex, plan, device, randn, results, timed)
+
+
+def _check_mads_and_pool(smoke, ex, plan, device, randn, results, timed):
+    """``check_kernels``'s MADs (at the first ``fft_cached`` conv below the
+    input) and pool (at the first MPF layer)."""
+    import torch
+
+    from repro_torch.core.pruned_fft import pruned_rfftn
+    from repro_torch.kernels.cmul_mad import ops as cmul_ops
+    from repro_torch.kernels.mpf_pool import ops as mpf_ops
+
+    layers, states = ex.compiled.layers, ex.compiled.states
 
     # cmul_mad / cmul_mad_bias: the first fft_cached conv below the input
     i2 = next(i for i, pl in enumerate(layers) if pl.prim == "fft_cached")
@@ -396,16 +443,19 @@ def check_kernels(smoke, ex, plan, device, gen):
         nbytes = _nb(X2) + _nb(W2) + S2 * fp2 * bins * 8.0
         if name == "cmul_mad_bias":
             nbytes += _nb(b2)
+        del got, want
         r = dict(max_abs_err=err)
+        r["bound_ms"], r["bound_by"] = bound(nbytes, 8.0 * S2 * f2 * fp2 * bins)
+        results[name] = r
+        if not timed:
+            continue
         r["ms"] = time_ms(lambda: call(None), device)
         r["plain_ms"] = time_ms(lambda: call(False), device, reps=2)
-        r["bound_ms"], r["bound_by"] = bound(nbytes, 8.0 * S2 * f2 * fp2 * bins)
         r["library_ms"] = (
             time_ms(lambda: torch.einsum("si...,ji...->sj...", X2, W2), device)
             if name == "cmul_mad" else None
         )
-        results[name] = r
-        del got, want
+    del X2
 
     # mpf_pool: the first MPF layer
     i1 = next(i for i, pl in enumerate(layers) if pl.prim == "mpf")
@@ -417,13 +467,14 @@ def check_kernels(smoke, ex, plan, device, gen):
     err = float((got - want).abs().max())
     smoke.check(err == 0.0, f"mpf_pool vs plain, x {tuple(x1.shape)} p {p}: "
                             f"max_abs_err {err:.3e} (exact)")
-    r = dict(max_abs_err=err)
+    r = dict(max_abs_err=err, library_ms=None)
+    r["bound_ms"], r["bound_by"] = bound(_nb(x1) + _nb(got), float(got.numel()) * (p**3 - 1))
+    results["mpf_pool"] = r
+    if not timed:
+        return results
     r["ms"] = time_ms(lambda: mpf_ops.mpf_pool(x1, p), device)
     r["plain_ms"] = time_ms(lambda: mpf_ops.mpf_pool(x1, p, use_kernels=False),
                             device, reps=2)
-    r["bound_ms"], r["bound_by"] = bound(_nb(x1) + _nb(got), float(got.numel()) * (p**3 - 1))
-    r["library_ms"] = None
-    results["mpf_pool"] = r
     # a bytes-bound yardstick only: max_pool3d at stride 1 computes the
     # sliding max M in another layout, not the fragments in s·p³+o order
     import torch.nn.functional as F
@@ -1946,6 +1997,133 @@ def plain_pool(smoke, device, net, hw, seed):
                     f"max|ref| {float(want.abs().max()):.3f})")
 
 
+# ---------------------------------------------------------------------------
+# Phase 6: the other three Table III nets
+
+# (net, first fragment size m to try, batch): the deployed reuse mix on an
+# H100 plan; m drops by half while plan_fixed finds the point infeasible.
+# The volume is two cores along x, so the second patch walks the strip
+# path; batch 1 keeps the 80 -> 80 kernel spectra (up to ~23 GB a layer
+# at these FOVs) and the patch's activations within the card.
+ZNNI_SERVED = (("n537", 4, 1), ("n726", 8, 1), ("n926", 8, 1))
+
+
+def _plan_line(label, plan) -> str:
+    if plan is None:
+        return f"{label}: infeasible"
+    return (f"{label}: m {plan.m_final} batch {plan.batch} core {plan.core} n_in "
+            f"{plan.n_in} predicted {plan.throughput:.1f} vox/s, peak "
+            f"{plan.peak_bytes:.0f} B, device {plan.memory.device_bytes:.0f} B; prims "
+            f"{plan.prims}")
+
+
+def serve_znni_net(smoke, device, net, m, batch, hw, gen, seed):
+    """One Table III net at full width (80 maps, every layer, random
+    weights from the seed) on the deployed reuse mix: its kernels against
+    their plain versions at the compiled plan's shapes, then one volume of
+    two cores along x served with ``fuse_os`` and held against the dense
+    oracle.  Returns the serve's stats and launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import convnet, planner
+    from repro_torch.serving import VolumeEngine
+
+    params = convnet.init_params(net, gen, device=device)
+    params = [None if p is None else (p[0], 0.1 * torch.randn(
+        p[1].shape, generator=gen).to(device)) for p in params]
+    prims = ["overlap_save" if i == 0 else ("fft_cached" if l.kind == "conv" else "mpf")
+             for i, l in enumerate(net.layers)]
+    fov, P = net.field_of_view(), net.total_pooling()
+    plan = None
+    while plan is None and m >= 1:
+        core = m * P
+        shape = (2 * core + fov - 1, core + fov - 1, core + fov - 1)
+        points = []
+        plan = planner.plan_fixed(net, hw, prims, m=m, batch=batch, volume_shape=shape,
+                                  infeasible=points)
+        if plan is None:
+            print(f"{net.name}: plan_fixed infeasible at m {m} batch {batch}: "
+                  + "; ".join(str(pt) for pt in points), flush=True)
+            m //= 2
+    smoke.check(plan is not None, f"{net.name}: a feasible served plan on {hw.name}")
+    if plan is None:
+        return {}, {}
+    print(_plan_line(f"{net.name} served plan (fov {fov}, P {P}, volume {shape})", plan),
+          flush=True)
+    print(_plan_line(f"{net.name} plan_single on {hw.name}", planner.plan_single(net, hw)),
+          flush=True)
+    vol = np.random.default_rng(seed).normal(size=(net.in_channels,) + shape).astype(
+        np.float32)
+    t = time.perf_counter()
+    want = dense_oracle(net, params, vol, device)
+    _sync(device)
+    print(f"{net.name}: dense oracle {tuple(want.shape)} in "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    _free(device)
+    engine = VolumeEngine(params, net, plan, fuse_os=True, tuned=None, device=device)
+    check_kernels(smoke, engine.executor, plan, device, gen, timed=False)
+    _free(device)
+    engine, counts, stats = serve(smoke, f"{net.name} fuse_os", REACHED[True], net, plan,
+                                  params, [vol], [want], device, engine=engine,
+                                  need_mixed=False)
+    stats.update(m=plan.m_final, batch=plan.batch, core=plan.core, n_in=plan.n_in,
+                 predicted_voxps=plan.throughput)
+    del engine
+    _free(device)
+    return stats, counts
+
+
+def run_znni_nets(device, hw, seed=0):
+    """Phase 6: n537, n726 and n926 served on the card, then the paper's
+    headline question priced on (Xeon, this card).  Returns (serving
+    stats, launch counts, failures)."""
+    import torch
+
+    from repro_torch.configs.znni_nets import ZNNI_NETS
+    from repro_torch.core import planner
+    from repro_torch.core.hw import XEON_E7_8890V3_4WAY
+
+    smoke = Smoke()
+    gen = torch.Generator().manual_seed(seed + 5)
+    serving, launches = {}, {name: 0 for name in KERNELS}
+    for name, m, batch in ZNNI_SERVED:
+        t = time.perf_counter()
+        serving[name], counts = serve_znni_net(smoke, device, ZNNI_NETS[name], m, batch, hw,
+                                               gen, seed + 5)
+        for k, v in counts.items():
+            launches[k] += v
+        print(f"{name} phase: {time.perf_counter() - t:.1f} s", flush=True)
+    # the paper's headline question asked of the card, priced only: the
+    # host-CPU profile is the paper's Xeon, uncalibrated for this machine
+    net = ZNNI_NETS["n726"]
+    devices = (XEON_E7_8890V3_4WAY, hw)
+    budgets = tuple(float(d.hbm_bytes) for d in devices)
+    hetero = planner.plan_hetero(net, devices, chips_per_stage=1, max_m=40,
+                                 ram_budgets=budgets)
+    singles = [planner.plan_single(net, d, max_m=40, ram_budget=b)
+               for d, b in zip(devices, budgets)]
+    if hetero is not None:
+        print(f"hetero n726 on ({devices[0].name}, {devices[1].name}): devices "
+              f"{hetero.devices} theta {hetero.theta} m {hetero.m_final} batch "
+              f"{hetero.batch} stage_times {hetero.stage_times} xfer {hetero.xfer_bytes:.0f} "
+              f"B / {hetero.xfer_seconds:.6f} s, predicted {hetero.throughput:.1f} vox/s; "
+              f"prims {hetero.prims}", flush=True)
+    for d, plan in zip(devices, singles):
+        print(_plan_line(f"n726 plan_single on {d.name}", plan), flush=True)
+    smoke.check(hetero is not None and all(p is not None for p in singles),
+                "n726: plan_hetero and both plan_singles priced")
+    if hetero is not None and all(p is not None for p in singles):
+        best = max(singles, key=lambda p: p.throughput)
+        print(f"hetero n726: predicted {hetero.throughput:.1f} vox/s against the best "
+              f"single device's {best.throughput:.1f} ({hetero.throughput / best.throughput:.3f}x)"
+              f" (priced only)", flush=True)
+        serving["hetero_n726_priced"] = dict(
+            hetero_voxps=hetero.throughput, theta=hetero.theta, devices=list(hetero.devices),
+            single_voxps={d.name: p.throughput for d, p in zip(devices, singles)})
+    return serving, launches, smoke.failures
+
+
 # Served Qwen2.5-14B (bf16): a served token's logit may sit below its row's
 # maximum in a plain forward by this much, and one decode step with the
 # kernel may move a logit from the plain version's by this much.  The two
@@ -1957,14 +2135,115 @@ def plain_pool(smoke, device, net, hw, seed):
 # row maxima ~5 sigma above the row mean.  A broken path puts the served
 # token at a random rank, about that far below the maximum.
 LOGIT_TOL = 1.0
+# The MoE archs' router logits: the plain forward's, routed as the served
+# decode routed, against the served decode's, at every MoE layer and
+# position.  Between the largest sound reading and the smallest wrong one
+# (this script on an NVIDIA H100 80GB HBM3 at 700 W): bf16 reads 0.21
+# (mixtral, 24 layers), 0.12 (grok, 5) and 0.81 (jamba, 8; 0.0017 in f32),
+# while the forward fed a wrong router input reads 2.40 or more (its own
+# routing, parted from the served upstream: 2.40 / 2.65 / 2.88; the next
+# MoE layer's or the previous position's served logits: 3.82 and more,
+# checked every run).  The router logits are N(0, ~2).
+ROUTER_TOL = 1.0
 # decode_attn tolerances: the reference's (tests/test_kernels.py)
 DA_TOL = {"bfloat16": dict(atol=2e-2, rtol=1e-2), "float32": dict(atol=1e-4, rtol=1e-4)}
 
 
-def check_decode_attn(smoke, device, gen, cases):
-    """Phase 6a: ``decode_attn`` vs its plain version; the first case (the
-    served shapes) is timed beside its bound and PyTorch's SDPA.  A case
-    may end with its lengths; otherwise they are drawn, the first S + 5."""
+class Routes:
+    """The MoE router's choices, through ``layers.moe.route``.  Inside
+    ``hooked()`` each call's router logits and expert ids are recorded
+    under the current ``tag``; with ``force`` (an iterator of expert-id
+    tensors, one a call) each call routes to the given ids instead, its
+    weights renormalised from the call's own probabilities, and records
+    the ids it would have chosen."""
+
+    def __init__(self, force=None):
+        self.calls = []  # (tag, router logits (G, T, E) f32, own ids (G, T, K))
+        self.tag = None
+        self.force = None if force is None else iter(force)
+
+    @contextlib.contextmanager
+    def hooked(self):
+        from repro_torch.layers import moe as moe_l
+
+        own_route = moe_l.route
+
+        def route(p, xt, cfg):
+            probs, topw, topi = own_route(p, xt, cfg)
+            self.calls.append((self.tag, xt.float() @ p["router"], topi))
+            if self.force is not None:
+                topi = next(self.force)
+                topw = probs.gather(-1, topi)
+                topw = topw / topw.sum(dim=-1, keepdim=True)
+            return probs, topw, topi
+
+        moe_l.route = route
+        try:
+            yield self
+        finally:
+            moe_l.route = own_route
+
+    def by_request(self, n_moe: int):
+        """{rid: [per MoE layer: {position: (router logits (E,), ids (K,))}]}
+        from a drain's tagged calls: a prefill's rows are its prompt's
+        positions, a decode tick's rows its slots'."""
+        out = {}
+        for i in range(0, len(self.calls), n_moe):
+            group = self.calls[i:i + n_moe]
+            kind, info = group[0][0]
+            rows = ([(info, pos, pos) for pos in range(group[0][1].shape[1])]
+                    if kind == "prefill" else
+                    [(who[0], who[1], slot) for slot, who in enumerate(info) if who])
+            for rid, pos, row in rows:
+                layers = out.setdefault(rid, [dict() for _ in range(n_moe)])
+                for m, (_, logits, ids) in enumerate(group):
+                    layers[m][pos] = (logits[0, row], ids[0, row])
+        return out
+
+
+def _layer_blocks(cfg):
+    """(mixer, is_moe) of each layer, in order."""
+    from repro_torch.configs.base import parse_block_token
+
+    PL = len(cfg.block_pattern)
+    toks = list(cfg.block_pattern) * (cfg.n_layers // PL) + list(
+        cfg.block_pattern[: cfg.n_layers % PL])
+    return [parse_block_token(t) for t in toks]
+
+
+def moe_layers(cfg) -> int:
+    return sum(is_moe for _, is_moe in _layer_blocks(cfg)) if cfg.d_ff > 0 else 0
+
+
+def global_attention_layers(cfg) -> int:
+    """Layers whose decode goes through ``decode_attn``: full attention."""
+    return sum(mixer in ("attn", "global") for mixer, _ in _layer_blocks(cfg))
+
+
+def _tag_routes(engine, routes):
+    """Tag the engine's model calls for ``routes``: a prefill with its
+    request, a decode tick with each slot's (request, fed position)."""
+    prefill_into = engine._prefill_into_slot
+    decode = engine.model.decode_step
+
+    def tagged_prefill(slot, req):
+        routes.tag = ("prefill", req.rid)
+        prefill_into(slot, req)
+
+    def tagged_decode(params, tokens, caches, **kw):
+        routes.tag = ("decode", [None if r is None else (r.rid, len(r.prompt) + len(r.out) - 1)
+                                 for r in engine.slot_req])
+        return decode(params, tokens, caches, **kw)
+
+    engine._prefill_into_slot = tagged_prefill
+    engine.model = dataclasses.replace(engine.model, decode_step=tagged_decode)
+
+
+def check_decode_attn(smoke, device, gen, cases, timed=True):
+    """Phase 8a: ``decode_attn`` vs its plain version; with ``timed`` the
+    first case (the served shapes) is timed beside its bound and PyTorch's
+    SDPA, and its result returned.  A case may end with its lengths;
+    otherwise they are drawn, the first S + 5."""
     import torch
     import torch.nn.functional as F
 
@@ -1991,7 +2270,7 @@ def check_decode_attn(smoke, device, gen, cases):
                     f"decode_attn ({label}) vs plain, B {B} S {S} Hkv {Hkv} G {G} d {d} "
                     f"{dt}, lengths {lengths.tolist()}: max_abs_err {err:.3e} "
                     f"(atol {tol['atol']}, rtol {tol['rtol']})")
-        if result is not None:
+        if result is not None or not timed:
             continue
         # the function's compulsory traffic: q, the valid K/V rows, the
         # lengths and the output, each once; 4 operations per (head,
@@ -2023,8 +2302,10 @@ def check_decode_attn(smoke, device, gen, cases):
 
 def serve_lm(smoke, device, cfg, *, slots, max_seq, n_requests, prompt_range,
              new_range, seed=0):
-    """Phase 6b: serve ``cfg`` through ``ServingEngine``; returns the
-    model, params, engine, requests and the launch counts of the drain."""
+    """Phase 8b: serve ``cfg`` through ``ServingEngine``; returns the
+    model, params, engine, requests, the launch counts and stats of the
+    drain, and for the MoE archs the served routing
+    (``Routes.by_request``; else None)."""
     import numpy as np
     import torch
 
@@ -2038,8 +2319,10 @@ def serve_lm(smoke, device, cfg, *, slots, max_seq, n_requests, prompt_range,
     params = model.init(gen, device=device)
     _sync(device)
     n_params = sum(p.numel() for p in _leaves(params))
-    print(f"lm: {cfg.name}, {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.attn.n_heads} heads on {cfg.attn.n_kv_heads} kv heads, d_ff {cfg.d_ff}, "
+    heads = ("no attention" if cfg.attn is None else
+             f"{cfg.attn.n_heads} heads on {cfg.attn.n_kv_heads} kv heads")
+    print(f"lm: {cfg.name}, {cfg.n_layers} layers {cfg.block_pattern}, d_model "
+          f"{cfg.d_model}, {heads}, d_ff {cfg.d_ff}, moe {cfg.moe}, ssm {cfg.ssm}, "
           f"vocab {cfg.vocab}, {cfg.dtype}: {n_params} parameters drawn in "
           f"{time.perf_counter() - t:.1f} s", flush=True)
     engine = ServingEngine(model, params, EngineConfig(slots=slots, max_seq=max_seq),
@@ -2052,18 +2335,27 @@ def serve_lm(smoke, device, cfg, *, slots, max_seq, n_requests, prompt_range,
         engine.submit(r)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
+    # the MoE archs' routing, recorded call by call for check_lm
+    routes = Routes() if moe_layers(cfg) else None
+    if routes is not None:
+        _tag_routes(engine, routes)
     _sync(device)
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     ticks, admitted_late = 0, False
-    while True:
-        queued = len(engine.queue)
-        if engine.step() == 0:
-            break
-        ticks += 1
-        admitted_late |= ticks > 1 and len(engine.queue) < queued
+    with routes.hooked() if routes is not None else contextlib.nullcontext():
+        while True:
+            queued = len(engine.queue)
+            if engine.step() == 0:
+                break
+            ticks += 1
+            admitted_late |= ticks > 1 and len(engine.queue) < queued
     _sync(device)
     dt = time.perf_counter() - t0
+    if routes is not None:
+        del engine._prefill_into_slot
+        engine.model = model
+        routes = routes.by_request(moe_layers(cfg))
     counts = kernels.launch_counts()
     generated = sum(len(r.out) for r in reqs)
     prompt_tokens = sum(len(r.prompt) for r in reqs)
@@ -2077,54 +2369,140 @@ def serve_lm(smoke, device, cfg, *, slots, max_seq, n_requests, prompt_range,
                 "lm: every request done with max_new tokens")
     smoke.check(not engine.queue and admitted_late,
                 "lm: requests admitted mid-run (more requests than slots)")
-    want = cfg.n_layers * ticks
-    smoke.check(counts["decode_attn"] == want and want > 0,
-                f"lm: decode_attn launched {counts['decode_attn']} times == "
-                f"{cfg.n_layers} layers x {ticks} decode ticks")
-    for name in REACHED["lm"]:
-        smoke.check(counts[name] > 0, f"lm: {name} launched {counts[name]} times "
-                                      f"on the main path")
+    # decode_attn serves the global-attention layers; windowed (local)
+    # decode is plain PyTorch, as the reference's is plain XLA
+    n_global = global_attention_layers(cfg)
+    want = n_global * ticks
+    smoke.check(counts["decode_attn"] == want and ticks > 0,
+                f"lm {cfg.name}: decode_attn launched {counts['decode_attn']} times == "
+                f"{n_global} global-attention layers x {ticks} decode ticks")
+    if n_global:
+        for name in REACHED["lm"]:
+            smoke.check(counts[name] > 0, f"lm {cfg.name}: {name} launched "
+                                          f"{counts[name]} times on the main path")
     stats = dict(seconds=dt, generated=generated, ticks=ticks, tokens_per_s=generated / dt,
                  max_memory_allocated=peak)
-    return model, params, engine, reqs, counts, stats
+    return model, params, engine, reqs, counts, stats, routes
 
 
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
             yield from _leaves(v)
-        else:
+        elif v is not None:  # "blocks" of a model shallower than its pattern
             yield v
 
 
-def check_lm(smoke, device, model, params, engine, reqs):
-    """Phase 6c: served tokens against a plain forward; one decode step
-    with the kernel against one with the plain version, on a fixed cache."""
+def _gaps(logits, r):
+    """A request's served tokens against ``logits`` of its prompt plus
+    generated tokens: (gap of each served token to its row's maximum,
+    the rows)."""
+    import torch
+
+    rows = logits[0, len(r.prompt) - 1:].float()
+    served = torch.as_tensor(r.out, device=rows.device)
+    return rows.max(dim=-1).values - rows.gather(1, served[:, None])[:, 0], rows
+
+
+def _same_experts(a, b):
+    """Positions whose expert sets agree, for ids (..., K) in any order."""
+    return (a.sort(dim=-1).values == b.sort(dim=-1).values).all(dim=-1)
+
+
+def check_lm(smoke, device, model, params, engine, reqs, routes=None):
+    """Phase 8c: served tokens against a plain forward; one decode step
+    with the kernel against one with the plain version, on a fixed cache.
+
+    With MoE blocks a router near-tie that bf16 rounding tips the other
+    way between two paths sends a token to another expert and moves its
+    output whole, so the MoE archs are held against the plain forward
+    routed as the served decode routed (``routes``: the same expert ids,
+    the weights from the forward's own probabilities), and the
+    forward's own router logits against the served ones, both within
+    ``LOGIT_TOL``; the forward with its own routing is printed beside them
+    with the places its routing differs.  The fixed-cache decode step's
+    plain run routes as its kernel run."""
     import torch
 
     from repro_torch.layers.dot import f32_accumulation
 
-    worst, exact, total, sigma, spread = 0.0, 0, 0, 0.0, 0.0
+    cfg = model.cfg
+    n_moe = moe_layers(cfg)
+    worst, own_worst, exact, total, sigma, spread = 0.0, 0.0, 0, 0, 0.0, 0.0
+    flips, places, router_err, margin = 0, 0, 0.0, 0.0
+    wrong_layer, wrong_pos = math.inf, math.inf
     with f32_accumulation():
         for r in reqs:
             seq = list(r.prompt) + r.out[:-1]
             toks = torch.as_tensor(seq, dtype=torch.long, device=device)[None]
             logits, _ = model.forward(params, {"tokens": toks})
-            rows = logits[0, len(r.prompt) - 1:].float()
-            served = torch.as_tensor(r.out, device=device)
-            top = rows.max(dim=-1).values
-            gap = top - rows.gather(1, served[:, None])[:, 0]
+            gap, rows = _gaps(logits, r)
+            if n_moe:
+                own_worst = max(own_worst, float(gap.max()))
+                del logits
+                served = routes[r.rid]
+                T = len(seq)
+                forced = [torch.stack([served[m][pos][1] for pos in range(T)])[None]
+                          for m in range(n_moe)]
+                tape = Routes(force=forced)
+                with tape.hooked():
+                    logits, _ = model.forward(params, {"tokens": toks})
+                gap, rows = _gaps(logits, r)
+                # along the served routing, the forward's router logits, and
+                # the places where they would pick other experts
+                lgs, slgs = [], []
+                for m, (_, lg, ids) in enumerate(tape.calls):
+                    slg = torch.stack([served[m][pos][0] for pos in range(T)])[None]
+                    router_err = max(router_err, float((lg - slg).abs().max()))
+                    lgs.append(lg)
+                    slgs.append(slg)
+                    other = ~_same_experts(ids, forced[m])
+                    flips += int(other.sum())
+                    places += T
+                    if bool(other.any()):
+                        # the forward's own logit margin between the experts
+                        # it would pick and the served ones it would not
+                        mine = lg.gather(-1, ids).min(dim=-1).values
+                        theirs = lg.gather(-1, forced[m]).min(dim=-1).values
+                        margin = max(margin, float((mine - theirs)[other].max()))
+                # the same comparison fed a wrong router input, as a fault
+                # would: the next MoE layer's served logits, or the served
+                # logits one position earlier
+                for m in range(n_moe):
+                    if m + 1 < n_moe:
+                        wrong_layer = min(wrong_layer,
+                                          float((lgs[m] - slgs[m + 1]).abs().max()))
+                    if T > 1:
+                        wrong_pos = min(wrong_pos, float(
+                            (lgs[m][:, 1:] - slgs[m][:, :-1]).abs().max()))
+                del lgs, slgs
             worst = max(worst, float(gap.max()))
             exact += int((gap == 0).sum())
             total += len(r.out)
             sigma += float(rows.std(dim=-1).sum())
-            spread += float((top - rows.mean(dim=-1)).sum())
+            spread += float((rows.max(dim=-1).values - rows.mean(dim=-1)).sum())
             del logits, rows
+    routed = " routed as the served decode routed" if n_moe else ""
     smoke.check(worst <= LOGIT_TOL,
-                f"lm: every served token's logit within {LOGIT_TOL} of its row's maximum "
-                f"in a plain forward: worst gap {worst:.4f}; {exact} of {total} served "
-                f"tokens are the forward's argmax; rows: mean std {sigma / total:.3f}, "
-                f"mean (max - mean) {spread / total:.3f}")
+                f"lm {cfg.name}: every served token's logit within {LOGIT_TOL} of its row's "
+                f"maximum in a plain forward{routed}: worst gap {worst:.4f}; {exact} of "
+                f"{total} served tokens are the forward's argmax; rows: mean std "
+                f"{sigma / total:.3f}, mean (max - mean) {spread / total:.3f}")
+    if n_moe:
+        smoke.check(router_err <= ROUTER_TOL,
+                    f"lm {cfg.name}: along the served routing, the plain forward's router "
+                    f"logits within {ROUTER_TOL} of the served decode's at every MoE layer "
+                    f"and position: max_abs_err {router_err:.4f}")
+        smoke.check(min(wrong_layer, wrong_pos) > ROUTER_TOL,
+                    f"lm {cfg.name}: the router gate fails a wrong router input: fed the "
+                    f"next MoE layer's served logits it reads {wrong_layer:.4f}, fed the "
+                    f"previous position's {wrong_pos:.4f} (each the least over requests and "
+                    f"MoE layers of the largest |error|), both above {ROUTER_TOL}")
+        print(f"lm {cfg.name}: along the served routing the plain forward's own router "
+              f"would pick other experts at {flips} of {places} (MoE layer, position) "
+              f"places, by a logit margin of at most {margin:.4f}; the plain forward "
+              f"routing itself: worst served-token gap {own_worst:.4f} (not gated: a "
+              f"routing flip moves a token's output whole)", flush=True)
 
     caches = engine.caches
 
@@ -2137,37 +2515,44 @@ def check_lm(smoke, device, model, params, engine, reqs):
 
     tokens = engine._next_tok.clone()
     with f32_accumulation():
-        got, _ = model.decode_step(params, tokens, fixed(),
-                                   use_kernels=device.type == "cuda")
-        want, _ = model.decode_step(params, tokens, fixed(), use_kernels=False)
+        kernel_routes = Routes()
+        with kernel_routes.hooked():
+            got, _ = model.decode_step(params, tokens, fixed(),
+                                       use_kernels=device.type == "cuda")
+        plain_routes = Routes(force=[ids for _, _, ids in kernel_routes.calls])
+        with plain_routes.hooked():
+            want, _ = model.decode_step(params, tokens, fixed(), use_kernels=False)
     err = float((got.float() - want.float()).abs().max())
     same = int((got[:, 0].argmax(-1) == want[:, 0].argmax(-1)).sum())
+    step_flips = sum(int((~_same_experts(a[2], b[2])).sum())
+                     for a, b in zip(kernel_routes.calls, plain_routes.calls))
     smoke.check(err <= LOGIT_TOL,
-                f"lm: decode_step logits with the kernel vs the plain version on a fixed "
-                f"cache (lengths {caches['lengths'].tolist()}): max_abs_err {err:.4f} "
-                f"(atol {LOGIT_TOL}); argmax equal in {same} of {got.shape[0]} slots")
-    return dict(worst_gap=worst, exact=exact, total=total, decode_step_err=err,
-                logit_std=sigma / total, logit_top_minus_mean=spread / total)
+                f"lm {cfg.name}: decode_step logits with the kernel vs the plain version on a "
+                f"fixed cache (lengths {caches['lengths'].tolist()}{routed.replace('served decode', 'kernel run')}): "
+                f"max_abs_err {err:.4f} (atol {LOGIT_TOL}); argmax equal in {same} of "
+                f"{got.shape[0]} slots; the plain run's own routing differs at {step_flips} "
+                f"places")
+    out = dict(worst_gap=worst, exact=exact, total=total, decode_step_err=err,
+               logit_std=sigma / total, logit_top_minus_mean=spread / total)
+    if n_moe:
+        out.update(own_routing_worst_gap=own_worst, routing_flips=flips, routing_places=places,
+                   router_logit_err=router_err, flip_margin=margin,
+                   wrong_layer_err=wrong_layer, wrong_position_err=wrong_pos,
+                   decode_step_flips=step_flips)
+    return out
 
 
-def run_lm(device, cfg, *, da_cases, slots, max_seq, n_requests, prompt_range, new_range,
-           seed=0):
-    """Phase 7: the LM serving path; returns (decode_attn result, failures)."""
+def time_lm(smoke, device, model, params, engine, reqs, stats, routes, *, slots, max_seq):
+    """Decode ticks on the drained engine's caches (each writes the same
+    rows: the engine's lengths are not advanced), timed on the host clock;
+    then one under torch.profiler; then the longest prompt's prefill; then
+    ``check_lm``.  Updates and prints ``stats``."""
     import torch
 
     from repro_torch.layers.dot import f32_accumulation
 
-    smoke = Smoke()
-    gen = torch.Generator().manual_seed(seed + 3)
-    result = check_decode_attn(smoke, device, gen, da_cases)
-    model, params, engine, reqs, counts, stats = serve_lm(
-        smoke, device, cfg, slots=slots, max_seq=max_seq, n_requests=n_requests,
-        prompt_range=prompt_range, new_range=new_range, seed=seed)
-    result["launches"] = counts["decode_attn"]
-    # decode ticks on the drained engine's caches (each writes the same
-    # rows: the engine's lengths are not advanced), timed on the host
-    # clock; then one under torch.profiler; then the longest prompt's
-    # prefill
+    cfg = model.cfg
+
     def tick():
         return model.decode_step(params, engine._next_tok, engine.caches)
 
@@ -2181,14 +2566,15 @@ def run_lm(device, cfg, *, da_cases, slots, max_seq, n_requests, prompt_range, n
             tick()
         _sync(device)
         tick_ms = (time.perf_counter() - t) * 1e3 / 5
-        wall, busy, rows = device_profile(tick, device, f"one decode tick of {slots} slots",
-                                          top=12)
+        wall, busy, rows = device_profile(
+            tick, device, f"one decode tick of {cfg.name}, {slots} slots", top=12)
         t = time.perf_counter()
         model.prefill(params, {"tokens": toks}, cache_len=max_seq)
         _sync(device)
         prefill_ms = (time.perf_counter() - t) * 1e3
-    print(f"lm: decode tick {tick_ms:.3f} ms on the host clock (5 ticks, no profiler) = "
-          f"{slots / tick_ms * 1e3:.1f} tokens/s at {slots} busy slots; prefill of "
+    print(f"lm {cfg.name}: decode tick {tick_ms:.3f} ms on the host clock (5 ticks, no "
+          f"profiler) = {slots / tick_ms * 1e3:.1f} tokens/s at {slots} busy slots, "
+          f"{busy * 1e3:.3f} ms of device time under the profiler; prefill of "
           f"{len(longest)} tokens {prefill_ms:.3f} ms", flush=True)
     da_us = sum(us for us, _, name in rows if "decode_attn" in name)
     print(f"profile: decode_attn {da_us / 1e3:.3f} ms of the tick's {busy * 1e3:.3f} ms "
@@ -2196,13 +2582,199 @@ def run_lm(device, cfg, *, da_cases, slots, max_seq, n_requests, prompt_range, n
     stats.update(tick_ms=tick_ms, tick_profiled_wall_ms=wall * 1e3,
                  tick_busy_ms=busy * 1e3, tick_decode_attn_ms=da_us / 1e3,
                  prefill_ms=prefill_ms, prefill_tokens=len(longest))
-    stats.update(check_lm(smoke, device, model, params, engine, reqs))
-    print("serving lm: " + json.dumps(stats), flush=True)
+    stats.update(check_lm(smoke, device, model, params, engine, reqs, routes))
+    print(f"serving lm {cfg.name}: " + json.dumps(stats), flush=True)
+    return stats
+
+
+def run_lm(device, cfg, *, da_cases, slots, max_seq, n_requests, prompt_range, new_range,
+           seed=0):
+    """Phase 8: the LM serving path; returns (decode_attn result, failures)."""
+    import torch
+
+    smoke = Smoke()
+    gen = torch.Generator().manual_seed(seed + 3)
+    result = check_decode_attn(smoke, device, gen, da_cases)
+    model, params, engine, reqs, counts, stats, routes = serve_lm(
+        smoke, device, cfg, slots=slots, max_seq=max_seq, n_requests=n_requests,
+        prompt_range=prompt_range, new_range=new_range, seed=seed)
+    result["launches"] = counts["decode_attn"]
+    time_lm(smoke, device, model, params, engine, reqs, stats, routes, slots=slots,
+            max_seq=max_seq)
     return result, smoke.failures
 
 
+# The archs of the MoE, Mamba2 and local/global blocks, served at full
+# width with bf16 weights drawn on the card: (arch, layers), None for the
+# most layers that fit on the card (``fit_depth``; full depth where it
+# holds them all).  Jamba keeps one 8-layer pattern: at the 21 that fit,
+# its bf16 served decode parts from the plain forward by more than
+# LOGIT_TOL (ROADMAP Queue 3), so it is gated at 8 and its fitted depth
+# is read by ``LM_PROBE``.
+LM_ARCHS = (("mamba2-2.7b", None), ("phi3-medium-14b", None), ("gemma3-27b", None),
+            ("mixtral-8x7b", None), ("grok-1-314b", None), ("jamba-v0.1-52b", 8))
+# a smaller grid than Qwen2.5-14B's: more requests than slots, so some
+# are admitted mid-run
+LM_ARCH_GRID = dict(slots=4, max_seq=512, n_requests=6, prompt_range=(16, 257),
+                    new_range=(8, 21))
+# served again in f32 at the same depth: the served decode's distance from
+# the forward must close there (bf16 rounding, not the port): jamba's
+# router logits (0.81 at 8 layers, against ~0.1 for mixtral and grok) and
+# Mamba2's served-token gaps (0.61 at 64 layers, the largest of the
+# non-MoE archs)
+LM_F32_WITNESS = ("mamba2-2.7b", "jamba-v0.1-52b")
+# served at the most layers that fit, the checks printed and not gated
+LM_PROBE = ("jamba-v0.1-52b",)
+# memory kept free beside an arch's weights and caches when its depth is
+# fitted: the CUDA context, the checks' activations (plain forwards of up
+# to 276 tokens with f32 logits, the drop-free expert buffers) and the
+# allocator's slack
+LM_RESERVE = 8 << 30
+
+
+def fit_depth(cfg, slots: int, max_seq: int, total: int):
+    """The most layers of ``cfg`` (up to its own) that fit in ``total``
+    bytes: the weights, plus the larger of what drawing them holds beside
+    them (one layer, and the largest tensor's f32 draw where the weights
+    are narrower; ``init_params``) and the caches, plus ``LM_RESERVE``.
+    Returns (layers, {"weights", "transient", "caches", "need", and
+    "next_need" of one layer more} in bytes)."""
+    import torch
+
+    from repro_torch.models.transformer import _cache_shape_for
+
+    def size(dt):
+        return torch.empty((), dtype=getattr(torch, dt) if isinstance(dt, str) else dt
+                           ).element_size()
+
+    el = size(cfg.dtype)
+    weights = [el * dataclasses.replace(cfg, n_layers=n).param_count()
+               for n in range(cfg.n_layers + 1)]
+    d, moe = cfg.d_model, cfg.moe
+    leaf = max(cfg.vocab * d, d * cfg.d_ff * (moe.n_experts if moe else 1),
+               d * cfg.ssm.d_inner(d) if cfg.ssm else 0,
+               d * cfg.attn.n_heads * cfg.attn.head_dim if cfg.attn else 0)
+    transient = (max(b - a for a, b in zip(weights, weights[1:]))
+                 + (4 * leaf if el < 4 else 0))
+    caches = [0]
+    for n in range(cfg.n_layers):
+        tok = cfg.block_pattern[n % len(cfg.block_pattern)]
+        caches.append(caches[-1] + sum(math.prod(shape) * size(dt) for shape, dt in
+                                       _cache_shape_for(cfg, tok, slots, max_seq).values()))
+    need = [w + max(transient, c) + LM_RESERVE for w, c in zip(weights, caches)]
+    n = max([k for k in range(1, cfg.n_layers + 1) if need[k] <= total], default=0)
+    return n, dict(weights=weights[n], transient=transient, caches=caches[n], need=need[n],
+                   next_need=need[n + 1] if n < cfg.n_layers else None)
+
+
+def lm_arch_config(name: str, total: int, *, slots: int, max_seq: int, depth=None,
+                   dtype=None):
+    """The arch's config in ``dtype`` (None: its own) at ``depth`` layers
+    (None: the most that fit in ``total`` bytes, ``fit_depth``), with the
+    MoE capacity factor raised to the expert count: served decode routes
+    the slots' tokens together and ``forward`` a whole sequence, so with
+    capacity drops the two would drop different tokens by design;
+    drop-free they compute the same function (the reference's own
+    decode-vs-forward test raises it the same way,
+    ``tests/test_models_smoke.py``).  Returns (config, the cuts as text)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(name)
+    cuts = []
+    if dtype is not None and dtype != cfg.dtype:
+        cuts.append(f"dtype {cfg.dtype} -> {dtype}")
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    fit, mem = fit_depth(cfg, slots, max_seq, total)
+    if fit == 0:
+        raise RuntimeError(f"{name}: not one layer fits in {total / 1e9:.1f} GB")
+    layers = min(fit, cfg.n_layers if depth is None else depth)
+    if layers < cfg.n_layers:
+        full = 2 * get_config(name).param_count() / 1e9
+        if layers == fit:
+            cuts.append(
+                f"depth {layers} of {cfg.n_layers} layers, the most that fit: weights "
+                f"{mem['weights'] / 1e9:.1f} GB + max(init transient "
+                f"{mem['transient'] / 1e9:.1f} GB, caches {mem['caches'] / 1e9:.2f} GB) + "
+                f"reserve {LM_RESERVE / 1e9:.1f} GB = {mem['need'] / 1e9:.1f} GB of the "
+                f"card's {total / 1e9:.1f} GB; {layers + 1} layers would need "
+                f"{mem['next_need'] / 1e9:.1f} GB (full depth: {full:.1f} GB of bf16 "
+                f"weights)")
+        else:
+            cuts.append(f"depth {layers} of {cfg.n_layers} layers (kept; {fit} would fit)")
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    if cfg.moe is not None:
+        cuts.append(f"capacity_factor {cfg.moe.capacity_factor} -> {cfg.moe.n_experts} "
+                    f"(drop-free)")
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+    return cfg, "; ".join(cuts) or "none"
+
+
+class Probe(Smoke):
+    """Prints what each check reads and gates nothing."""
+
+    def check(self, ok: bool, what: str) -> None:
+        print(("probe within  " if ok else "probe over    ") + what, flush=True)
+
+
+def run_lm_archs(device, archs=LM_ARCHS, grid=LM_ARCH_GRID, witness=LM_F32_WITNESS,
+                 probe=LM_PROBE, seed=0):
+    """Phase 8d: each arch served through ``ServingEngine`` and held
+    against a plain ``forward``, ``decode_attn`` first held against its
+    plain version at the arch's served shapes; then each witness arch
+    again in f32 at the same depth, its distance from the forward
+    closing there; then each probe arch at the most layers that fit,
+    ungated.  Returns (stats by run, decode_attn launches, failures)."""
+    import torch
+
+    smoke, ungated = Smoke(), Probe()
+    total = torch.cuda.get_device_properties(device).total_memory
+    print(f"lm archs: the card's {total} bytes, {torch.cuda.mem_get_info(device)[0]} free, "
+          f"{torch.cuda.memory_allocated(device)} allocated", flush=True)
+    gen = torch.Generator().manual_seed(seed + 5)
+    depths = dict(archs)
+    runs = ([(name, depth, None, "") for name, depth in archs]
+            + [(name, depths[name], "float32", " f32 witness") for name in witness]
+            + [(name, None, None, " probe") for name in probe])
+    out, launches = {}, 0
+    for name, depth, dtype, role in runs:
+        t = time.perf_counter()
+        cfg, cuts = lm_arch_config(name, total, slots=grid["slots"], max_seq=grid["max_seq"],
+                                   depth=depth, dtype=dtype)
+        key = name + role
+        gate = ungated if role == " probe" else smoke
+        print(f"lm {key}: cuts: {cuts}; {cfg.param_count()} parameters", flush=True)
+        if global_attention_layers(cfg):
+            a = cfg.attn
+            check_decode_attn(smoke, device, gen, [(
+                f"{key}, served", grid["slots"], grid["max_seq"], a.n_kv_heads,
+                a.n_heads // a.n_kv_heads, a.head_dim, cfg.dtype)], timed=False)
+        model, params, engine, reqs, counts, stats, routes = serve_lm(
+            gate, device, cfg, seed=seed, **grid)
+        launches += counts["decode_attn"]
+        stats.update(cuts=cuts, layers=cfg.n_layers)
+        out[key] = time_lm(gate, device, model, params, engine, reqs, stats, routes,
+                           slots=grid["slots"], max_seq=grid["max_seq"])
+        del model, params, engine, reqs, routes
+        _free(device)
+        print(f"lm {key} phase: {time.perf_counter() - t:.1f} s", flush=True)
+    for name in witness:
+        lo, hi = out[name], out[name + " f32 witness"]
+        keys = ["worst_gap"] + (["router_logit_err"] if "router_logit_err" in lo else [])
+        print(f"lm {name} f32 witness at {lo['layers']} layers (bf16, f32): " + "; ".join(
+            f"{k} {lo[k]:.6f}, {hi[k]:.6f}" for k in keys + ["decode_step_err"])
+            + "".join(f"; {k} {lo[k]}, {hi[k]}" for k in ("exact", "routing_flips")
+                      if k in lo), flush=True)
+        smoke.check(hi["layers"] == lo["layers"] and all(hi[k] <= lo[k] / 10 for k in keys)
+                    and hi.get("routing_flips", 0) <= lo.get("routing_flips", 0),
+                    f"lm {name}: at the same depth the served decode's distance from the "
+                    f"forward closes in f32 ({', '.join(keys)} at most a tenth of bf16's, no "
+                    f"more routing flips): bf16 rounding, not the port")
+    return out, launches, smoke.failures
+
+
 # ---------------------------------------------------------------------------
-# Phase 6: training on the card
+# Phase 7: training on the card
 
 # full-width n337 (80 maps, 10 layers) trained at m = 2 (input 100³),
 # batch 2, with direct convs and mpf pools: the reference example's
@@ -2273,7 +2845,7 @@ def _grad_close(smoke, label, got, want):
 
 def check_grad_kernels(smoke, device, gen, convs=TRAIN_CONVS, pools=TRAIN_POOLS,
                        ragged_grad=RAGGED_GRAD, ragged_pool=RAGGED_POOL):
-    """Phase 6a: the input gradient (through ``conv3d``) and ``conv3d_wgrad``
+    """Phase 7a: the input gradient (through ``conv3d``) and ``conv3d_wgrad``
     against the plain autograd of ``ref.conv3d`` at n337's training shapes,
     then ``mpf_pool_bwd`` against its plain version on tie-free inputs,
     each timed beside its bound and cuDNN's (the forward ``conv3d`` too,
@@ -2590,7 +3162,7 @@ def f64_gate(smoke, step, params, net, x, y, grads, plain, gate: bool):
 
 
 def train_n337(smoke, device, net, counts, train=TRAIN):
-    """Phase 6b–c: full-width n337 takes AdamW steps through the kernels,
+    """Phase 7b–c: full-width n337 takes AdamW steps through the kernels,
     each step's loss and gradients held against the plain versions at the
     same params; then the plain versions' own run from the same initial
     params; a checkpoint after step 3 is restored into fresh objects and
@@ -2777,7 +3349,7 @@ def train_n337(smoke, device, net, counts, train=TRAIN):
 
 
 def run_examples(smoke, device, seg_steps=TRAIN["seg_steps"]):
-    """Phase 6d–e: the seg-net example's 200 steps, then quickstart,
+    """Phase 7d–e: the seg-net example's 200 steps, then quickstart,
     serve_volume and pipeline_inference (its two ranks), on the card."""
     import numpy as np
 
@@ -2807,7 +3379,7 @@ def run_examples(smoke, device, seg_steps=TRAIN["seg_steps"]):
 
 
 def run_train(device, net, seed=0, *, train=TRAIN, **shapes):
-    """Phase 6: returns (kernel results, launch counts, failures).
+    """Phase 7: returns (kernel results, launch counts, failures).
     ``shapes`` overrides ``check_grad_kernels``'s shape lists (a CPU
     rehearsal passes small ones with a narrow net)."""
     import torch
@@ -2971,6 +3543,15 @@ def main() -> int:
                             plain_net=BENCH_NET)
     torch.cuda.empty_cache()
     t = time.perf_counter()
+    znni_serving, znni_counts, znni_failures = run_znni_nets(device, H100_SXM)
+    failures += znni_failures
+    for name in KERNELS:
+        r = results.setdefault(name, {})
+        r["launches"] = r.get("launches", 0) + znni_counts.get(name, 0)
+    print("serving znni nets: " + json.dumps(znni_serving), flush=True)
+    print(f"znni nets phase: {time.perf_counter() - t:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
     train_results, train_counts, train_failures = run_train(device, N337)
     failures += train_failures
     for name in KERNELS:
@@ -2998,6 +3579,10 @@ def main() -> int:
         slots=8, max_seq=2048, n_requests=12, prompt_range=(64, 1537),
         new_range=(16, 65))
     failures += lm_failures
+    torch.cuda.empty_cache()
+    arch_stats, arch_launches, arch_failures = run_lm_archs(device)
+    failures += arch_failures
+    results["decode_attn"]["launches"] += arch_launches
     print(f"lm phase: {time.perf_counter() - t:.1f} s", flush=True)
     kernels = []
     for name, (source, replaces) in KERNELS.items():

@@ -1,8 +1,8 @@
 """Config registry: ``get_config(arch_id)`` / ``ARCHS`` / shapes / ZNNi nets.
 
-``ARCHS`` holds the LM architectures the port serves so far (the dense
-decoder-only ones); the reference's other eight wait in ROADMAP.md
-(Queue 1, item 14).
+``ARCHS`` holds the LM architectures the port serves: the decoder-only
+ones (dense, MoE, SSM and hybrid).  The reference's ``qwen2-vl-7b`` and
+``whisper-tiny`` wait in ROADMAP.md (Queue 1, item 14).
 """
 
 from .base import (  # noqa: F401
@@ -21,9 +21,31 @@ from .base import (  # noqa: F401
 )
 from .znni_nets import BENCH_NET, N337, N537, N726, N926, ZNNI_NETS, net_by_name  # noqa: F401
 
-from . import qwen1_5_4b, qwen2_5_14b
+from . import (
+    gemma3_27b,
+    grok1_314b,
+    jamba_v0_1_52b,
+    mamba2_2_7b,
+    mixtral_8x7b,
+    phi3_medium_14b,
+    qwen1_5_4b,
+    qwen2_5_14b,
+)
 
-ARCHS = {m.CONFIG.name: m.CONFIG for m in (qwen2_5_14b, qwen1_5_4b)}
+# the reference's registry order, less the two archs still to port
+ARCHS = {
+    m.CONFIG.name: m.CONFIG
+    for m in (
+        mixtral_8x7b,
+        grok1_314b,
+        phi3_medium_14b,
+        qwen2_5_14b,
+        qwen1_5_4b,
+        gemma3_27b,
+        mamba2_2_7b,
+        jamba_v0_1_52b,
+    )
+}
 
 
 def get_config(arch_id: str) -> ModelConfig:

@@ -33,9 +33,29 @@ def _out_shape(n: Sequence[int], k: Sequence[int]) -> Tuple[int, ...]:
     return tuple(int(ni - ki + 1) for ni, ki in zip(n, k))
 
 
+# output-channel slices of at most this many bytes of kernel spectra
+KERNEL_FFT_SLICE_BYTES = 2**30
+
+
 def precompute_kernel_fft(w: torch.Tensor, fft_shape: Sequence[int]) -> torch.Tensor:
-    """Kernel spectra (f', f, na, nb, nc''), reusable across patches/batches."""
-    return kernel_rfftn(w, fft_shape)
+    """Kernel spectra (f', f, na, nb, nc''), reusable across patches/batches.
+
+    Transformed in slices of output channels of at most
+    ``KERNEL_FFT_SLICE_BYTES`` of spectra each, written into one tensor:
+    the padded copies and cuFFT work areas of a transform take about three
+    times its output, which for 80 -> 80 maps at n926's and n537's layer 2
+    (19-23 GB of spectra) would not fit beside the spectra on one card.
+    Each output channel's spectra are the same transform either way."""
+    na, nb, nc = (int(s) for s in fft_shape)
+    fp, f = w.shape[:2]
+    per_channel = f * na * nb * (nc // 2 + 1) * 8
+    step = max(1, KERNEL_FFT_SLICE_BYTES // per_channel)
+    if step >= fp:
+        return kernel_rfftn(w, fft_shape)
+    W = torch.empty((fp, f, na, nb, nc // 2 + 1), dtype=torch.complex64, device=w.device)
+    for j in range(0, fp, step):
+        W[j : j + step] = kernel_rfftn(w[j : j + step], fft_shape)
+    return W
 
 
 def fft_conv_data_parallel(

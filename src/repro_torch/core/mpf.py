@@ -34,6 +34,21 @@ def mpf(x: torch.Tensor, p: int, *, use_kernels: Optional[bool] = None) -> torch
     return mpf_ops.mpf_pool(x.contiguous(), p, use_kernels=use_kernels)
 
 
+def mpf_reference(x: torch.Tensor, p: int) -> torch.Tensor:
+    """Oracle: explicit loop over offsets (also used by tests)."""
+    S, f = x.shape[:2]
+    n = x.shape[2:]
+    if any((ni + 1) % p for ni in n):
+        raise ValueError(f"MPF needs (n+1)%p==0, got n={tuple(n)}, p={p}")
+    m = tuple(ni // p for ni in n)
+    frags = []
+    for ox, oy, oz in itertools.product(range(p), repeat=3):
+        v = x[:, :, ox : ox + p * m[0], oy : oy + p * m[1], oz : oz + p * m[2]]
+        frags.append(max_pool3d(v, p))
+    y = torch.stack(frags, dim=1)  # (S, p³, f, m³)
+    return y.reshape(S * p**3, f, *m)
+
+
 def naive_sliding_pool(x: torch.Tensor, p: int) -> torch.Tensor:
     """The baseline 'compute all subsamplings' primitive: a dense max
     filter, window p, stride 1 — out[v] = max(x[v : v+p]) per axis, output

@@ -123,6 +123,27 @@ def pool_primitive(name: str) -> Primitive:
         ) from None
 
 
+def get_primitive(name: str) -> Primitive:
+    """Resolve a name in either registry (conv aliases included)."""
+    canonical = _CONV_ALIASES.get(name, name)
+    if canonical in _CONV:
+        return _CONV[canonical]
+    if canonical in _POOL:
+        return _POOL[canonical]
+    raise ValueError(
+        f"unknown primitive {name!r}; registered: {sorted(_CONV) + sorted(_POOL)}"
+    )
+
+
+def registered_conv_names() -> Tuple[str, ...]:
+    """Canonical conv primitive names (aliases excluded)."""
+    return tuple(_CONV)
+
+
+def registered_pool_names() -> Tuple[str, ...]:
+    return tuple(_POOL)
+
+
 def resolve_primitive(prepared: PreparedLayer) -> Primitive:
     """The registry entry a ``PreparedLayer`` executes as."""
     return (_CONV if prepared.kind == "conv" else _POOL)[prepared.prim]

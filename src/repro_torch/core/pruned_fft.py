@@ -62,6 +62,14 @@ def pruned_rfftn(x: torch.Tensor, fft_shape: Sequence[int]) -> torch.Tensor:
     return X.contiguous()
 
 
+def naive_rfftn(x: torch.Tensor, fft_shape: Sequence[int]) -> torch.Tensor:
+    """Reference: pad-then-rfftn (the unpruned transform)."""
+    na, nb, nc = (int(s) for s in fft_shape)
+    a, b, c = x.shape[-3:]
+    padded = torch.nn.functional.pad(x, (0, nc - c, 0, nb - b, 0, na - a))
+    return torch.fft.rfftn(padded, dim=(-3, -2, -1))
+
+
 def pruned_irfftn(
     X: torch.Tensor,
     fft_shape: Sequence[int],
@@ -87,6 +95,24 @@ def kernel_rfftn(w: torch.Tensor, fft_shape: Sequence[int]) -> torch.Tensor:
     to a kernel that reads the raw buffer.
     """
     return torch.conj_physical(pruned_rfftn(w, fft_shape))
+
+
+def fft_correlate_valid(
+    x: torch.Tensor, w: torch.Tensor, fft_shape: Sequence[int] | None = None
+) -> torch.Tensor:
+    """'valid' cross-correlation of x (..., n³) with w (..., k³) via pruned FFT.
+
+    A circular transform of size >= n suffices for the valid region (no
+    wrap-around for output indices [0, n-k]).
+    """
+    n = x.shape[-3:]
+    k = w.shape[-3:]
+    if fft_shape is None:
+        fft_shape = fft_optimal_shape(n)
+    out = tuple(ni - ki + 1 for ni, ki in zip(n, k))
+    X = pruned_rfftn(x, fft_shape)
+    W = kernel_rfftn(w, fft_shape)
+    return pruned_irfftn(X * W, fft_shape, (0, 0, 0), out)
 
 
 # ---------------------------------------------------------------------------

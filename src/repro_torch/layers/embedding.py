@@ -12,9 +12,10 @@ from .dot import mm
 
 
 def _normal(shape, std: float, dtype, device, generator) -> torch.Tensor:
-    """N(0, std²) drawn in f32 on the generator's device, cast to dtype."""
+    """N(0, std²) drawn in f32 on the generator's device, cast to dtype
+    (scaled in place: one f32 copy at a time)."""
     x = torch.randn(shape, generator=generator, device=generator.device)
-    return (x * std).to(device=device, dtype=dtype)
+    return x.mul_(std).to(device=device, dtype=dtype)
 
 
 def embed_init(generator, vocab: int, d: int, tie: bool, dtype, device) -> dict:

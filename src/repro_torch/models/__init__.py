@@ -1,3 +1,4 @@
-"""LM models: ``build_model(cfg)`` and the dense decoder-only transformer."""
+"""LM models: ``build_model(cfg)`` and the decoder-only transformer (dense, MoE,
+SSM and hybrid)."""
 
 from .api import Model, build_model  # noqa: F401

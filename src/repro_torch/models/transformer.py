@@ -1,28 +1,31 @@
-"""Decoder-only LM assembled from the layer zoo: the dense family.
+"""Decoder-only LM assembled from the layer zoo, covering the dense, MoE,
+SSM and hybrid families through the config's ``block_pattern``.
 
 Layer stacking follows the reference: the pattern (length PL) repeats
 R = n_layers // PL times, parameters for pattern position j are stacked
-over repeats (leading dim R), and a partial trailing repeat lives under
-``rem``.  Where the reference runs the repeats under ``lax.scan``, the
-port runs a Python loop over views ``stacked[r]``; there is no remat,
-since this is inference.
+over repeats (leading dim R), and a partial trailing repeat (gemma3's
+62 = 10·6 + 2) lives under ``rem``.  Where the reference runs the
+repeats under ``lax.scan``, the port runs a Python loop over views
+``stacked[r]``; there is no remat, since this is inference.
 
 Three entry points share the block code:
-  forward     — full-sequence logits
+  forward     — full-sequence logits + the MoE aux loss
   prefill     — full-sequence logits + decode caches
   decode_step — single-token step against the caches
 
-Caches (leading dim R, stacked like params):
-  {"blocks": {j: {"k", "v": (R, B, S_max, Hkv, hd)}}, "rem": {j: {"k", "v":
-  (B, S_max, Hkv, hd)}}, "lengths": (B,) int32}
+Caches (leading dim R, stacked like params; ``rem`` without it):
+  attn/local/global: {"k", "v": (R, B, S_max, Hkv, hd)}
+  mamba:             {"conv": (R, B, d_conv-1, ch), "state": (R, B, h, p, n) f32}
+  plus "lengths": (B,) int32.
 
-``decode_step`` updates the caches IN PLACE — one new row per sequence and
-layer, written into the layer's view of the stacked cache — where the
+``decode_step`` updates the caches IN PLACE — one new K/V row per
+sequence and attention layer, and each Mamba layer's conv window and
+state, written into the layer's view of the stacked cache — where the
 reference carries the whole cache through the scan and rewrites it with
 ``dynamic_update_index_in_dim``.  Only ``lengths`` is a new tensor.
 
-Mamba and MoE blocks, frontends (VLM patches, audio) and the
-encoder-decoder wait in ROADMAP.md (Queue 1, item 14) and raise here.
+Frontends (VLM patches, audio) and the encoder-decoder wait in
+ROADMAP.md (Queue 1, item 14) and raise here.
 """
 
 from __future__ import annotations
@@ -37,7 +40,9 @@ from ..kernels.dispatch import DeviceLike, resolve_device
 from ..layers import attention as attn_l
 from ..layers import embedding as emb_l
 from ..layers import mlp as mlp_l
+from ..layers import moe as moe_l
 from ..layers import norms as norm_l
+from ..layers import ssm as ssm_l
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -51,12 +56,6 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(f"{cfg.name}: the encoder-decoder {todo}")
     if cfg.frontend != "none":
         raise NotImplementedError(f"{cfg.name}: the {cfg.frontend!r} frontend {todo}")
-    for tok in cfg.block_pattern:
-        mixer, is_moe = parse_block_token(tok)
-        if mixer == "mamba":
-            raise NotImplementedError(f"{cfg.name}: the Mamba2/SSM block {todo}")
-        if is_moe:
-            raise NotImplementedError(f"{cfg.name}: the MoE block {todo}")
 
 
 def _tree_map(fn, tree):
@@ -74,14 +73,20 @@ def _index(tree, r: int):
 
 
 def _init_block(generator, cfg: ModelConfig, tok: str, device) -> Dict[str, Any]:
+    mixer, is_moe = parse_block_token(tok)
     dt = _dtype(cfg)
-    p: Dict[str, Any] = {
-        "norm1": norm_l.norm_init(cfg.norm, cfg.d_model, dt, device),
-        "mixer": attn_l.attn_init(generator, cfg.d_model, cfg.attn, dt, device),
-    }
+    p: Dict[str, Any] = {"norm1": norm_l.norm_init(cfg.norm, cfg.d_model, dt, device)}
+    if mixer == "mamba":
+        p["mixer"] = ssm_l.ssm_init(generator, cfg.d_model, cfg.ssm, dt, device)
+    else:
+        p["mixer"] = attn_l.attn_init(generator, cfg.d_model, cfg.attn, dt, device)
     if cfg.d_ff > 0:
         p["norm2"] = norm_l.norm_init(cfg.norm, cfg.d_model, dt, device)
-        p["ffn"] = mlp_l.mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.act, dt, device)
+        if is_moe:
+            p["ffn"] = moe_l.moe_init(generator, cfg.d_model, cfg.d_ff, cfg.moe, cfg.act,
+                                      dt, device)
+        else:
+            p["ffn"] = mlp_l.mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.act, dt, device)
     return p
 
 
@@ -91,9 +96,10 @@ def init_params(
     """Random params in ``cfg.dtype`` on ``device`` (``None``: the card).
 
     Tensor by tensor: each is drawn in f32 on the generator's device and
-    cast, and each repeat's block is written into its slice of the stacked
-    tensors, so no f32 copy of the model — nor of one stacked weight — is
-    ever made.  Pass a CUDA generator to draw on the card.
+    cast, and each layer is written into its repeat's slice of the stacked
+    tensors as soon as it is drawn, so beside the model no more than one
+    layer and one f32 tensor are held — no f32 copy of the model, nor of
+    one stacked weight.  Pass a CUDA generator to draw on the card.
     """
     check_supported(cfg)
     dev = resolve_device(device)
@@ -106,14 +112,15 @@ def init_params(
                                   dt, dev),
         "final_norm": norm_l.norm_init(cfg.norm, cfg.d_model, dt, dev),
     }
-    blocks: Optional[Dict[str, Any]] = None
+    blocks: Optional[Dict[str, Any]] = {} if R else None
     for r in range(R):
-        rep = {str(j): _init_block(generator, cfg, tok, dev)
-               for j, tok in enumerate(cfg.block_pattern)}
-        if blocks is None:
-            blocks = _tree_map(lambda t: torch.empty((R,) + tuple(t.shape), dtype=t.dtype,
-                                                     device=dev), rep)
-        _copy_into(_index(blocks, r), rep)
+        for j, tok in enumerate(cfg.block_pattern):
+            layer = _init_block(generator, cfg, tok, dev)
+            if r == 0:
+                blocks[str(j)] = _tree_map(lambda t: torch.empty(
+                    (R,) + tuple(t.shape), dtype=t.dtype, device=dev), layer)
+            _copy_into(_index(blocks[str(j)], r), layer)
+            del layer
     params["blocks"] = blocks
     if REM:
         params["rem"] = {
@@ -130,16 +137,26 @@ def _copy_into(dst, src) -> None:
             dst[k].copy_(v)
 
 
+# leaves the reference keeps in f32 whatever the model's dtype
+F32_LEAVES = frozenset({"router", "A_log", "D", "dt_bias"})
+
+
 def params_from_numpy(params, cfg: ModelConfig, device: DeviceLike = None) -> Dict[str, Any]:
     """The reference's params as numpy arrays (the same nested dict) ->
-    the port's tensors in ``cfg.dtype`` on ``device`` (``None``: the card),
-    key for key."""
+    the port's tensors on ``device`` (``None``: the card), key for key: in
+    ``cfg.dtype``, except the leaves the reference keeps in f32."""
     dev = resolve_device(device)
     dt = _dtype(cfg)
-    return _tree_map(
-        lambda a: torch.from_numpy(np.asarray(a, np.float32).copy()).to(device=dev, dtype=dt),
-        params,
-    )
+
+    def conv(tree):
+        return {
+            k: conv(v) if isinstance(v, dict) else torch.from_numpy(
+                np.asarray(v, np.float32).copy()).to(
+                    device=dev, dtype=torch.float32 if k in F32_LEAVES else dt)
+            for k, v in tree.items()
+        }
+
+    return conv(params)
 
 
 # ---------------------------------------------------------------------------
@@ -152,36 +169,53 @@ def _window(cfg: ModelConfig, tok: str) -> Optional[int]:
     return cfg.attn.swa_window if mixer == "local" else None
 
 
-def _ffn(p, x, cfg: ModelConfig):
-    if cfg.d_ff > 0:
-        h = norm_l.norm_apply(cfg.norm, x, p["norm2"])
-        x = x + mlp_l.mlp_apply(p["ffn"], h, cfg.act)
-    return x
+def _ffn(p, x, tok: str, cfg: ModelConfig):
+    """The block's FFN half: (x, the MoE aux loss or None)."""
+    if cfg.d_ff <= 0:
+        return x, None
+    h = norm_l.norm_apply(cfg.norm, x, p["norm2"])
+    if parse_block_token(tok)[1]:
+        y, aux = moe_l.moe_apply(p["ffn"], h, cfg.moe, cfg.act,
+                                 routing_groups=cfg.moe_routing_groups)
+        return x + y, aux
+    return x + mlp_l.mlp_apply(p["ffn"], h, cfg.act), None
 
 
-def _block_full(p, x, tok: str, cfg: ModelConfig, positions) -> torch.Tensor:
-    """Full-sequence block (forward, without cache capture)."""
+def _block_full(p, x, tok: str, cfg: ModelConfig, positions):
+    """Full-sequence block (forward, without cache capture): (x, aux)."""
     h = norm_l.norm_apply(cfg.norm, x, p["norm1"])
-    x = x + attn_l.attn_apply(p["mixer"], h, cfg.attn, positions, window=_window(cfg, tok))
-    return _ffn(p, x, cfg)
+    if parse_block_token(tok)[0] == "mamba":
+        y = ssm_l.ssm_apply(p["mixer"], h, cfg.ssm, cfg.d_model)
+    else:
+        y = attn_l.attn_apply(p["mixer"], h, cfg.attn, positions, window=_window(cfg, tok))
+    return _ffn(p, x + y, tok, cfg)
 
 
 def _block_prefill(p, x, tok: str, cfg: ModelConfig, positions, cache_len: int):
     h = norm_l.norm_apply(cfg.norm, x, p["norm1"])
-    y, (k, v) = attn_l.attn_prefill(
-        p["mixer"], h, cfg.attn, positions, cache_len, window=_window(cfg, tok)
-    )
-    return _ffn(p, x + y, cfg), {"k": k, "v": v}
+    if parse_block_token(tok)[0] == "mamba":
+        y, (conv, state) = ssm_l.ssm_prefill(p["mixer"], h, cfg.ssm, cfg.d_model)
+        cache = {"conv": conv, "state": state}
+    else:
+        y, (k, v) = attn_l.attn_prefill(
+            p["mixer"], h, cfg.attn, positions, cache_len, window=_window(cfg, tok)
+        )
+        cache = {"k": k, "v": v}
+    return _ffn(p, x + y, tok, cfg)[0], cache
 
 
 def _block_decode(p, x, tok: str, cfg: ModelConfig, cache, lengths, use_kernels):
     """One block of a decode step; writes this layer's cache in place."""
     h = norm_l.norm_apply(cfg.norm, x, p["norm1"])
-    y, _ = attn_l.attn_decode(
-        p["mixer"], h, cfg.attn, cache["k"], cache["v"], lengths,
-        window=_window(cfg, tok), use_kernels=use_kernels,
-    )
-    return _ffn(p, x + y, cfg)
+    if parse_block_token(tok)[0] == "mamba":
+        y, _ = ssm_l.ssm_decode(p["mixer"], h, cfg.ssm, cfg.d_model, cache["conv"],
+                                cache["state"])
+    else:
+        y, _ = attn_l.attn_decode(
+            p["mixer"], h, cfg.attn, cache["k"], cache["v"], lengths,
+            window=_window(cfg, tok), use_kernels=use_kernels,
+        )
+    return _ffn(p, x + y, tok, cfg)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -210,13 +244,17 @@ def _layers(params, cfg: ModelConfig):
 
 
 def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
-    """Full-sequence logits (B, S, vocab) + the MoE aux loss (0 here)."""
+    """Full-sequence logits (B, S, vocab) + the MoE aux loss (summed over
+    the MoE blocks; 0 without them)."""
     x, positions = _embed_inputs(params, cfg, batch)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, tok, _ in _layers(params, cfg):
-        x = _block_full(p, x, tok, cfg, positions)
+        x, a = _block_full(p, x, tok, cfg, positions)
+        if a is not None:
+            aux = aux + a
     x = norm_l.norm_apply(cfg.norm, x, params["final_norm"])
     logits = emb_l.head_apply(params["embed"], x)
-    return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
+    return logits, aux
 
 
 def prefill(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *, cache_len: int):
@@ -245,7 +283,7 @@ def decode_step(params, cfg: ModelConfig, tokens, caches, *,
                 use_kernels: Optional[bool] = None):
     """tokens (B, 1) -> logits (B, 1, vocab) + caches.
 
-    The caches' K/V tensors are updated in place (see the module
+    The caches' tensors are updated in place (see the module
     docstring) and returned; ``lengths`` comes back as a new tensor,
     ``lengths + 1``.  ``use_kernels`` follows the port's dispatch rule
     (``None``: the CUDA decode-attention kernel on the card).
@@ -265,23 +303,38 @@ def decode_step(params, cfg: ModelConfig, tokens, caches, *,
 # ---------------------------------------------------------------------------
 
 
+def _cache_shape_for(cfg: ModelConfig, tok: str, B: int, S_max: int):
+    """{key: (shape, dtype)} of one layer's decode cache."""
+    dt = _dtype(cfg)
+    if parse_block_token(tok)[0] == "mamba":
+        s = cfg.ssm
+        ch = s.d_inner(cfg.d_model) + 2 * s.d_state
+        return {
+            "conv": ((B, s.d_conv - 1, ch), dt),
+            "state": ((B, s.n_ssm_heads(cfg.d_model), s.headdim, s.d_state), torch.float32),
+        }
+    a = cfg.attn
+    return {
+        "k": ((B, S_max, a.n_kv_heads, a.head_dim), dt),
+        "v": ((B, S_max, a.n_kv_heads, a.head_dim), dt),
+    }
+
+
 def make_caches(cfg: ModelConfig, B: int, S_max: int, *, device: DeviceLike = None):
     """Zero caches matching prefill's output layout, on ``device``
     (``None``: the card).  The reference's ``abstract=True`` variant
     (shape stand-ins for its dry run) waits with the dry run."""
     check_supported(cfg)
     dev = resolve_device(device)
-    dt = _dtype(cfg)
-    a = cfg.attn
     PL = len(cfg.block_pattern)
     R = cfg.n_layers // PL
 
-    def kv(lead):
-        shape = lead + (B, S_max, a.n_kv_heads, a.head_dim)
-        return {key: torch.zeros(shape, dtype=dt, device=dev) for key in ("k", "v")}
+    def zeros(tok, lead):
+        return {key: torch.zeros(lead + shape, dtype=dt, device=dev)
+                for key, (shape, dt) in _cache_shape_for(cfg, tok, B, S_max).items()}
 
     return {
-        "blocks": {str(j): kv((R,)) for j in range(PL)},
-        "rem": {str(j): kv(()) for j in range(cfg.n_layers % PL)},
+        "blocks": {str(j): zeros(tok, (R,)) for j, tok in enumerate(cfg.block_pattern)},
+        "rem": {str(j): zeros(cfg.block_pattern[j], ()) for j in range(cfg.n_layers % PL)},
         "lengths": torch.zeros((B,), dtype=torch.int32, device=dev),
     }

@@ -43,6 +43,14 @@ MODULES = (
     "repro_torch.examples.quickstart",
     "repro_torch.examples.serve_volume",
     "repro_torch.examples.pipeline_inference",
+    "repro_torch.layers.moe",
+    "repro_torch.layers.ssm",
+    "repro_torch.configs.mixtral_8x7b",
+    "repro_torch.configs.grok1_314b",
+    "repro_torch.configs.phi3_medium_14b",
+    "repro_torch.configs.gemma3_27b",
+    "repro_torch.configs.mamba2_2_7b",
+    "repro_torch.configs.jamba_v0_1_52b",
 )
 
 

@@ -73,13 +73,17 @@ def test_ported_configs_equal_reference(arch):
 
 
 def test_unported_arch_raises():
-    with pytest.raises(KeyError, match="ROADMAP"):
-        get_config("mixtral-8x7b")
+    for arch in ("whisper-tiny", "qwen2-vl-7b"):
+        with pytest.raises(KeyError, match="ROADMAP"):
+            get_config(arch)
 
 
-@pytest.mark.parametrize("pattern", [("mamba",), ("attn_moe",)])
+# the config fields of the two parts still to port: the encoder-decoder
+# and a modality frontend
+@pytest.mark.parametrize("pattern", [dict(enc_dec=True, n_enc_layers=2, enc_seq=16),
+                                     dict(frontend="patch")])
 def test_unported_blocks_raise(pattern):
-    cfg = dataclasses.replace(get_config("qwen1.5-4b").reduced(), block_pattern=pattern)
+    cfg = dataclasses.replace(get_config("qwen1.5-4b").reduced(), **pattern)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_model(cfg)
 
