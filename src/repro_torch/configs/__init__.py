@@ -1,8 +1,7 @@
 """Config registry: ``get_config(arch_id)`` / ``ARCHS`` / shapes / ZNNi nets.
 
-``ARCHS`` holds the LM architectures the port serves: the decoder-only
-ones (dense, MoE, SSM and hybrid).  The reference's ``qwen2-vl-7b`` and
-``whisper-tiny`` wait in ROADMAP.md (Queue 1, item 14).
+``ARCHS`` holds the reference's ten LM architectures, in its registry
+order.
 """
 
 from .base import (  # noqa: F401
@@ -30,12 +29,14 @@ from . import (
     phi3_medium_14b,
     qwen1_5_4b,
     qwen2_5_14b,
+    qwen2_vl_7b,
+    whisper_tiny,
 )
 
-# the reference's registry order, less the two archs still to port
 ARCHS = {
     m.CONFIG.name: m.CONFIG
     for m in (
+        qwen2_vl_7b,
         mixtral_8x7b,
         grok1_314b,
         phi3_medium_14b,
@@ -44,16 +45,14 @@ ARCHS = {
         gemma3_27b,
         mamba2_2_7b,
         jamba_v0_1_52b,
+        whisper_tiny,
     )
 }
 
 
 def get_config(arch_id: str) -> ModelConfig:
     if arch_id not in ARCHS:
-        raise KeyError(
-            f"arch {arch_id!r} is not ported yet (ported: {sorted(ARCHS)}); "
-            "ROADMAP.md lists the rest (Queue 1, item 14)"
-        )
+        raise KeyError(f"unknown arch {arch_id!r}; known: {sorted(ARCHS)}")
     return ARCHS[arch_id]
 
 

@@ -40,6 +40,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.enc_dec:
+        raise SystemExit("serve driver targets decoder-only archs")
     device = resolve_device(args.device)
     model = build_model(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)

@@ -1,8 +1,8 @@
 """The LM layer zoo of the port.
 
-``dot`` (f32-accumulating products), ``norms``, ``rope``, ``embedding``,
-``mlp``, ``attention``, ``moe`` (top-k MoE) and ``ssm`` (Mamba2-SSD).
-Plain functions on tensors and nested dicts of tensors, in the
-reference's parameter layout.  M-RoPE and the frontend stubs wait in
-ROADMAP.md (Queue 1, item 14).
+``dot`` (f32-accumulating products), ``norms``, ``rope`` (RoPE and
+M-RoPE), ``embedding`` (with the token cross-entropy and the sinusoidal
+table), ``mlp``, ``attention``, ``moe`` (top-k MoE), ``ssm`` (Mamba2-SSD)
+and ``stubs`` (the VLM patch frontend).  Plain functions on tensors and
+nested dicts of tensors, in the reference's parameter layout.
 """

@@ -30,7 +30,7 @@ from ..configs.base import AttnConfig
 from ..kernels.decode_attn import ops as da_ops
 from .dot import contract
 from .embedding import _normal
-from .rope import apply_rope
+from .rope import apply_mrope, apply_rope, text_mrope_positions
 
 NEG_INF = -1e30
 
@@ -69,10 +69,10 @@ def _qkv(p, x, a: AttnConfig, positions, rope: bool = True):
     if rope and a.rope_kind == "rope":
         q = apply_rope(q, positions, a.rope_theta)
         k = apply_rope(k, positions, a.rope_theta)
-    elif rope and a.rope_kind != "none":
-        raise NotImplementedError(
-            f"rope_kind {a.rope_kind!r} waits with qwen2-vl (ROADMAP.md, Queue 1 item 14)"
-        )
+    elif rope and a.rope_kind == "mrope":
+        pos3 = positions if positions.ndim == 3 else text_mrope_positions(positions)
+        q = apply_mrope(q, pos3, a.rope_theta, a.mrope_sections)
+        k = apply_mrope(k, pos3, a.rope_theta, a.mrope_sections)
     return q, k, v
 
 

@@ -1,4 +1,4 @@
-"""LM models: ``build_model(cfg)`` and the decoder-only transformer (dense, MoE,
-SSM and hybrid)."""
+"""LM models: ``build_model(cfg)``, the decoder-only transformer (dense, MoE,
+SSM and hybrid; the VLM patch frontend) and the encoder-decoder."""
 
-from .api import Model, build_model  # noqa: F401
+from .api import Model, build_model, params_from_numpy  # noqa: F401

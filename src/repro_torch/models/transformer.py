@@ -6,12 +6,19 @@ R = n_layers // PL times, parameters for pattern position j are stacked
 over repeats (leading dim R), and a partial trailing repeat (gemma3's
 62 = 10·6 + 2) lives under ``rem``.  Where the reference runs the
 repeats under ``lax.scan``, the port runs a Python loop over views
-``stacked[r]``; there is no remat, since this is inference.
+``stacked[r]``.  ``forward(remat=True)`` recomputes each block in the
+backward (``torch.utils.checkpoint``), as the reference's
+``jax.checkpoint``; it changes no number.
 
 Three entry points share the block code:
   forward     — full-sequence logits + the MoE aux loss
   prefill     — full-sequence logits + decode caches
   decode_step — single-token step against the caches
+
+A ``frontend="patch"`` config (qwen2-vl) splices ``batch["patch_embeds"]``
+over the first positions and rotates with M-RoPE ids on the stub's
+(t, h, w) grid (``layers/stubs.py``); without patch embeddings its
+positions are text positions.
 
 Caches (leading dim R, stacked like params; ``rem`` without it):
   attn/local/global: {"k", "v": (R, B, S_max, Hkv, hd)}
@@ -23,9 +30,6 @@ sequence and attention layer, and each Mamba layer's conv window and
 state, written into the layer's view of the stacked cache — where the
 reference carries the whole cache through the scan and rewrites it with
 ``dynamic_update_index_in_dim``.  Only ``lengths`` is a new tensor.
-
-Frontends (VLM patches, audio) and the encoder-decoder wait in
-ROADMAP.md (Queue 1, item 14) and raise here.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig, parse_block_token
 from ..kernels.dispatch import DeviceLike, resolve_device
@@ -43,19 +48,11 @@ from ..layers import mlp as mlp_l
 from ..layers import moe as moe_l
 from ..layers import norms as norm_l
 from ..layers import ssm as ssm_l
+from ..layers import stubs
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the parts of the reference the port does not serve yet."""
-    todo = "waits in ROADMAP.md (Queue 1, item 14)"
-    if cfg.enc_dec:
-        raise NotImplementedError(f"{cfg.name}: the encoder-decoder {todo}")
-    if cfg.frontend != "none":
-        raise NotImplementedError(f"{cfg.name}: the {cfg.frontend!r} frontend {todo}")
 
 
 def _tree_map(fn, tree):
@@ -101,7 +98,6 @@ def init_params(
     layer and one f32 tensor are held — no f32 copy of the model, nor of
     one stacked weight.  Pass a CUDA generator to draw on the card.
     """
-    check_supported(cfg)
     dev = resolve_device(device)
     dt = _dtype(cfg)
     PL = len(cfg.block_pattern)
@@ -224,11 +220,17 @@ def _block_decode(p, x, tok: str, cfg: ModelConfig, cache, lengths, use_kernels)
 
 
 def _embed_inputs(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
-    """Text-only embedding and (B, S) positions."""
+    """The embedded inputs and their positions: (B, S) text positions, or
+    (3, B, S) M-RoPE ids where patch embeddings are spliced in."""
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = emb_l.embed_apply(params["embed"], tokens)
-    positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
+    if cfg.frontend == "patch" and "patch_embeds" in batch:
+        x = stubs.vlm_splice(x, batch["patch_embeds"])
+        positions = stubs.vlm_mrope_positions(B, S, batch["patch_embeds"].shape[1],
+                                              device=tokens.device)
+    else:
+        positions = torch.arange(S, device=tokens.device)[None].expand(B, S)
     return x, positions
 
 
@@ -243,13 +245,19 @@ def _layers(params, cfg: ModelConfig):
         yield params["rem"][str(j)], cfg.block_pattern[j], (None, str(j))
 
 
-def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
+def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor], *, remat: bool = True):
     """Full-sequence logits (B, S, vocab) + the MoE aux loss (summed over
-    the MoE blocks; 0 without them)."""
+    the MoE blocks; 0 without them).  With ``remat`` and autograd
+    recording, each block's activations are recomputed in the backward
+    instead of kept."""
     x, positions = _embed_inputs(params, cfg, batch)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    recompute = remat and torch.is_grad_enabled()
     for p, tok, _ in _layers(params, cfg):
-        x, a = _block_full(p, x, tok, cfg, positions)
+        if recompute:
+            x, a = checkpoint(_block_full, p, x, tok, cfg, positions, use_reentrant=False)
+        else:
+            x, a = _block_full(p, x, tok, cfg, positions)
         if a is not None:
             aux = aux + a
     x = norm_l.norm_apply(cfg.norm, x, params["final_norm"])
@@ -324,7 +332,6 @@ def make_caches(cfg: ModelConfig, B: int, S_max: int, *, device: DeviceLike = No
     """Zero caches matching prefill's output layout, on ``device``
     (``None``: the card).  The reference's ``abstract=True`` variant
     (shape stand-ins for its dry run) waits with the dry run."""
-    check_supported(cfg)
     dev = resolve_device(device)
     PL = len(cfg.block_pattern)
     R = cfg.n_layers // PL

@@ -18,7 +18,7 @@ from repro.core.hw import HardwareSpec as JHardwareSpec
 from repro.roofline import roofline as j_roofline
 from repro_torch.core import convnet
 from repro_torch.core.hw import H100_SXM, TPU_V5E
-from repro_torch.examples import pipeline_inference, quickstart, serve_volume
+from repro_torch.examples import pipeline_inference, quickstart, serve_lm, serve_volume
 from repro_torch.examples import train_segmentation
 from repro_torch.optim import tree
 from repro_torch.roofline import RooflineTerms, roofline
@@ -62,6 +62,14 @@ def test_serve_volume():
     reqs = serve_volume.main(["--device", "cpu", "--volumes", "2", "--m", "1", "--batch", "2"])
     assert [r.done for r in reqs] == [True, True]
     assert all(np.isfinite(r.out).all() for r in reqs)
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "qwen2-vl-7b"])
+def test_serve_lm(arch, capsys):
+    reqs = serve_lm.main(["--device", "cpu", "--arch", arch, "--requests", "4",
+                          "--slots", "2", "--max-new", "3"])
+    assert all(r.done and len(r.out) == 3 for r in reqs)
+    assert capsys.readouterr().out.rstrip().endswith("OK")
 
 
 def test_pipeline_inference_two_ranks(capsys):

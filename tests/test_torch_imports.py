@@ -51,6 +51,15 @@ MODULES = (
     "repro_torch.configs.gemma3_27b",
     "repro_torch.configs.mamba2_2_7b",
     "repro_torch.configs.jamba_v0_1_52b",
+    "repro_torch.configs.qwen2_vl_7b",
+    "repro_torch.configs.whisper_tiny",
+    "repro_torch.layers.stubs",
+    "repro_torch.layers.rope",
+    "repro_torch.layers.embedding",
+    "repro_torch.models.encdec",
+    "repro_torch.models.api",
+    "repro_torch.launch.train",
+    "repro_torch.examples.serve_lm",
 )
 
 

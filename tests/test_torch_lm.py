@@ -73,19 +73,35 @@ def test_ported_configs_equal_reference(arch):
 
 
 def test_unported_arch_raises():
-    for arch in ("whisper-tiny", "qwen2-vl-7b"):
-        with pytest.raises(KeyError, match="ROADMAP"):
+    """Every reference arch is registered, in its order; an unknown name
+    raises ``KeyError``."""
+    assert list(ARCHS) == list(JAX_ARCHS)
+    for arch in ("whisper-large", "qwen2-vl-72b"):
+        with pytest.raises(KeyError, match="unknown arch"):
             get_config(arch)
 
 
-# the config fields of the two parts still to port: the encoder-decoder
-# and a modality frontend
+# the config fields of the two parts ported last: the encoder-decoder and
+# a modality frontend (its patch ids rotate with M-RoPE); each builds and
+# runs a forward
 @pytest.mark.parametrize("pattern", [dict(enc_dec=True, n_enc_layers=2, enc_seq=16),
                                      dict(frontend="patch")])
 def test_unported_blocks_raise(pattern):
-    cfg = dataclasses.replace(get_config("qwen1.5-4b").reduced(), **pattern)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model(cfg)
+    cfg = dataclasses.replace(get_config("qwen1.5-4b").reduced(), dtype="float32", **pattern)
+    if cfg.frontend == "patch":
+        cfg = dataclasses.replace(cfg, attn=dataclasses.replace(cfg.attn, rope_kind="mrope"))
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0), device=CPU)
+    B, S = 2, 10
+    batch = {"tokens": torch.zeros((B, S), dtype=torch.long)}
+    if cfg.enc_dec:
+        assert "dec_blocks" in params and "blocks" not in params
+        batch["frame_embeds"] = torch.randn((B, cfg.enc_seq, cfg.d_model))
+    else:
+        batch["patch_embeds"] = torch.randn((B, 4, cfg.d_model))
+    logits, aux = model.forward(params, batch)
+    assert logits.shape == (B, S, cfg.vocab) and bool(torch.isfinite(logits).all())
+    assert float(aux) == 0.0
 
 
 # --------------------------------------------------------------------------
