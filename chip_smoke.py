@@ -152,9 +152,10 @@ Phases, in order; any failure makes the exit code non-zero:
       the backward and each kernel's launches a step are printed; then one
       step each with bf16 and int8 moments, and one step under
       ``torch.profiler``.
-   c. A checkpoint written (async) after step 3 is restored into fresh
-      objects and steps 4–5 rerun: losses, params and optimizer state
-      bitwise equal to the uninterrupted run.
+   c. A checkpoint written (async) after step 3 is restored to the host,
+      placed on the card through ``restore_with_remesh`` onto
+      ``make_host_mesh()``, and steps 4–5 rerun: losses, params and
+      optimizer state bitwise equal to the uninterrupted run.
    d. The ``seg-net`` example's 200 steps; its loss must fall.
    e. ``quickstart``, ``serve_volume`` and ``pipeline_inference`` (its
       two ranks) on the card.
@@ -213,7 +214,26 @@ Phases, in order; any failure makes the exit code non-zero:
       run each lowering the loss on its own batch; then the same on the
       reference's own training check (qwen1.5-4b reduced), its loss
       falling.
-9. Print the kernels' JSON line (ten entries: the eight Pallas
+9. The dry run (``run_dryrun``): its matrix on the host, 10 archs × 4
+   shapes × the two production meshes at the probe depths (68 measured,
+   12 skipped, 0 errors, a line a cell) and ``znni_dryrun`` for n537;
+   then two of its cells on the card's one-device mesh at full width:
+   a. ``qwen2.5-14b × decode_32k`` (48 layers, bf16, random weights and
+      K/V caches drawn on the card) at the largest batch whose predicted
+      peak is at most ``DRYRUN_FIT`` of the card's memory: ``decode_attn``
+      first held against its plain version at the cell's shapes (S =
+      32,768) and timed beside its bound and SDPA; the predicted argument
+      bytes equal to the materialized storages', the meta FLOP count
+      equal to ``FlopCounterMode``'s on the card, the step run on both
+      routes (logits within ``LOGIT_TOL``, the kernel route's tokens within
+      it of the plain route's row maxima), the predicted peak printed
+      beside ``max_memory_allocated``, the step timed;
+   b. one n537 x-shard (S 1, x 32 planes, full width, the planner's
+      primitives) through ``halo_sharded_apply`` on the kernels, held
+      against the plain route (``E2E``) with the kernels' launches
+      nonzero, and a 200-plane shard's first 38 planes, which the zero
+      halo does not reach, against ``apply_dense_reference``.
+10. Print the kernels' JSON line (ten entries: the eight Pallas
    counterparts, then ``conv3d_wgrad`` and ``mpf_pool_bwd`` with
    ``replaces`` null), then, as the last line,
    ``{"ok": true, "device": {...}}``.
@@ -3716,7 +3736,10 @@ def train_n337(smoke, device, net, counts, train=TRAIN):
     from repro_torch import kernels
     from repro_torch.core import convnet
     from repro_torch.data import SyntheticVolumePipeline, VolumePipelineConfig
+    from repro_torch.distributed.fault_tolerance import restore_with_remesh
+    from repro_torch.distributed.sharding import replicated
     from repro_torch.examples.train_segmentation import labels_of, loss_and_grads, train_step
+    from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.optim import AdamWConfig, QTensor, apply_updates, init_state, tree
 
     cuda = device.type == "cuda"
@@ -3840,12 +3863,18 @@ def train_n337(smoke, device, net, counts, train=TRAIN):
         del pp, op, gp
         _free(device)
 
-        # (c) resume from the checkpoint of step 3 into fresh objects
-        fresh = convnet.init_params(net, torch.Generator().manual_seed(1), device=device)
+        # (c) resume from the checkpoint of step 3 into fresh objects: read
+        # to the host, then placed through restore_with_remesh on the host mesh
+        fresh = convnet.init_params(net, torch.Generator().manual_seed(1), device="cpu")
         back = ckpt.restore(work, train["save_after"],
-                            {"params": fresh, "opt": init_state(fresh, cfg)}, device=device)
+                            {"params": fresh, "opt": init_state(fresh, cfg)}, device="cpu")
+        mesh = make_host_mesh() if cuda else make_host_mesh(device=device)
+        back = restore_with_remesh(back, tree.tree_map(lambda t: replicated(mesh), back))
         smoke.check(ckpt.latest_step(work) == train["save_after"],
                     f"train: checkpoint of step {train['save_after']} written (async)")
+        smoke.check(all(t.device == device for t in tree.leaves(back)),
+                    f"train: restore_with_remesh placed the checkpoint on the host mesh "
+                    f"{mesh.sizes} {mesh.devices}")
         pr, orr, lr_, _, _, _, _, _ = run(back["params"], back["opt"],
                                           steps[train["save_after"]:], None)
         same_loss = all(torch.equal(a, b) for a, b in zip(lr_, lk[train["save_after"]:]))
@@ -4030,6 +4059,363 @@ def run(device, net, m: int, batch: int, hw, seed: int = 0, *, dense_m: int,
     return results, smoke.failures
 
 
+# The dry run's cells on the card (phase 9).  The decode cell's batch: the
+# largest whose predicted peak (the meta run, plain route) is at most this
+# share of the card's total_memory, leaving room for the allocator's
+# blocks and cuBLAS's workspace, which the meta count does not see.
+DRYRUN_FIT = 0.9
+DRYRUN_DECODE = ("qwen2.5-14b", "decode_32k")
+DRYRUN_ZNNI = ("n537", 4)
+# A shard's output plane i reads input planes i .. i + FOV - 1 (n537's FOV
+# is 163), so at 32 planes every output plane reaches into the zero halo
+# of the chain's last rank.  A 200-plane shard (a multiple of P = 8, as
+# the MPF's fragments need) leaves 200 - 162 = 38 planes the halo does not
+# reach, which the dense oracle computes too.
+DRYRUN_ORACLE_X = 200
+
+
+def run_dryrun_matrix(smoke):
+    """Phase 9, on the host: every (arch, shape) cell of the dry run on both
+    production meshes, one meta run each, a line a cell (``[probe]``:
+    arguments and temp a card, ``fits_hbm``, the roofline terms and the
+    dominant one); then znni_dryrun."""
+    from repro_torch.configs import ARCHS, SHAPES
+    from repro_torch.experiments import znni_dryrun
+    from repro_torch.launch import dryrun
+
+    t = time.perf_counter()
+    n = {"measured": 0, "skipped": 0, "errors": 0}
+    for arch in ARCHS:
+        for shape in SHAPES:
+            try:
+                recs = dryrun.run_cells(arch, shape.name, ("single", "multi"), probe=True)
+            except Exception:  # noqa: BLE001 — counted, printed and failed below
+                print(f"dryrun {arch} x {shape.name}: ERROR\n{traceback.format_exc()}",
+                      flush=True)
+                n["errors"] += 2
+                continue
+            for r in recs:
+                n["skipped" if "skipped" in r else "measured"] += 1
+    smoke.check(n == {"measured": 68, "skipped": 12, "errors": 0},
+                f"dryrun matrix (probe depths, extrapolated): "
+                f"{n['measured']} measured, {n['skipped']} skipped, {n['errors']} errors "
+                f"(want 68, 12, 0) in {time.perf_counter() - t:.1f} s")
+    rec = znni_dryrun.run(*DRYRUN_ZNNI)
+    smoke.check(rec["output_shape"] == [1, 3, 32, 32, 32],
+                f"znni_dryrun {DRYRUN_ZNNI[0]}: one shard's output {rec['output_shape']}")
+
+
+def dryrun_decode_cell(smoke, device, cfg, shape, total, mesh, seed=0):
+    """Phase 9a: the decode cell on the card at the batch the dry run fits;
+    returns the kernel's numbers at the cell's shapes and its launches."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch import kernels
+    from repro_torch.launch import dryrun
+    from repro_torch.layers.dot import f32_accumulation
+    from repro_torch.models import build_model
+    from repro_torch.optim import tree
+
+    cuda = device.type == "cuda"
+    budget = int(DRYRUN_FIT * total)
+    t = time.perf_counter()
+    B, m = dryrun.fit_batch(cfg, shape, budget)
+    smoke.check(B > 0, f"dryrun cell {cfg.name} x {shape.name}: a batch fits {budget} B")
+    if not B:
+        return {}, 0
+    rec = dryrun.cell_record(m, "host", mesh, {})
+    pred_args, pred_peak = rec["mem"]["argument_bytes"], m.counts.peak_bytes
+    S, a = shape.seq_len, cfg.attn
+    print(f"dryrun cell {cfg.name} x {shape.name} on {mesh.sizes} {mesh.devices}: cuts: "
+          f"global batch {B} of {shape.global_batch}, the largest whose predicted peak is at "
+          f"most {DRYRUN_FIT} x total_memory {total} B = {budget} B; full width and depth "
+          f"({cfg.n_layers} layers, {cfg.dtype}, {cfg.param_count()} parameters); "
+          f"predicted (meta, plain route, {time.perf_counter() - t:.1f} s): arguments "
+          f"{pred_args} B, temp {rec['mem']['temp_bytes']} B, peak {pred_peak} B, "
+          f"{m.counts.flops} FLOPs, {m.counts.bytes_accessed} bytes accessed; roofline "
+          f"compute {rec['roofline']['compute_s'] * 1e3:.3f} ms ({rec['peak_flops_basis']}), "
+          f"memory {rec['roofline']['memory_s'] * 1e3:.3f} ms, dominant "
+          f"{rec['roofline']['dominant']}", flush=True)
+
+    # (e) the kernel at the cell's shapes first, so a wrong combine over
+    # S / CHUNK chunks fails on its own line
+    da = check_decode_attn(smoke, device, torch.Generator().manual_seed(seed + 11), [(
+        f"{cfg.name} x {shape.name}", B, S, a.n_kv_heads, a.n_heads_eff // a.n_kv_heads,
+        a.head_dim, cfg.dtype, [S] * B)])
+    _free(device)
+
+    t = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    model = build_model(cfg)
+    params = model.init(gen, device=device)
+    caches = model.make_caches(B, S, device=device)
+    for t_ in tree.leaves((caches["blocks"], caches["rem"])):
+        t_.normal_(generator=gen)
+    caches["lengths"].fill_(S - 1)  # one new token against a cache of S entries
+    tokens = torch.randint(0, cfg.vocab, (B, 1), generator=gen, device=device,
+                           dtype=torch.int32)
+    _sync(device)
+    actual = dryrun.storage_bytes((params, tokens, caches))
+    allocated = torch.cuda.memory_allocated(device) if cuda else 0
+    smoke.check(actual == pred_args,
+                f"dryrun cell: predicted argument bytes {pred_args} == the materialized "
+                f"tensors' storages {actual} (memory_allocated {allocated}, in the allocator's "
+                f"blocks; drawn in {time.perf_counter() - t:.1f} s)")
+
+    # (b) FLOPs on the card, the kernel route: the main path's run
+    kernels.reset_launch_counts()
+    with f32_accumulation(), FlopCounterMode(display=False) as fc:
+        logits, _ = model.decode_step(params, tokens, caches)
+    _sync(device)
+    launches = kernels.launch_counts()["decode_attn"]
+    smoke.check(fc.get_total_flops() == m.counts.flops,
+                f"dryrun cell: FLOPs on the card {fc.get_total_flops()} == the meta count "
+                f"{m.counts.flops}")
+    smoke.check(launches == cfg.n_layers,
+                f"dryrun cell: decode_attn launched {launches} times in the step "
+                f"({cfg.n_layers} layers)")
+
+    # (c) the step timed, its peak beside the prediction
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    with f32_accumulation():
+        start, end = ((torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+            enable_timing=True)) if cuda else (None, None))
+        _sync(device)
+        t = time.perf_counter()
+        if cuda:
+            start.record()
+        logits, _ = model.decode_step(params, tokens, caches)
+        if cuda:
+            end.record()
+        _sync(device)
+        host_ms = (time.perf_counter() - t) * 1e3
+        dev_ms = start.elapsed_time(end) if cuda else float("nan")
+    peak_k = torch.cuda.max_memory_allocated(device) if cuda else 0
+    with f32_accumulation():
+        wall, busy, _ = device_profile(lambda: model.decode_step(params, tokens, caches),
+                                       device, f"one decode step of the dry run's cell, B {B}",
+                                       top=8)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    # (d) the plain route on the same inputs: the route the meta run priced
+    with f32_accumulation():
+        plain, _ = model.decode_step(params, tokens, caches, use_kernels=False)
+    _sync(device)
+    peak_p = torch.cuda.max_memory_allocated(device) if cuda else 0
+    read_ms = actual / PEAK_BYTES * 1e3
+    print(f"dryrun cell: step {host_ms:.3f} ms on the host clock, {dev_ms:.3f} ms of device "
+          f"time (CUDA events); the dry run's memory term {rec['roofline']['memory_s'] * 1e3:.3f}"
+          f" ms (the plain route's unfused bytes), the arguments read once "
+          f"{read_ms:.3f} ms at {PEAK_BYTES / 1e12:.2f} TB/s", flush=True)
+    print(f"dryrun cell: predicted peak {pred_peak} B; max_memory_allocated {peak_p} B on the "
+          f"plain route (ratio {peak_p / pred_peak:.4f}), {peak_k} B on the kernel route "
+          f"(ratio {peak_k / pred_peak:.4f})", flush=True)
+    lk, lp = logits.float(), plain.float()
+    gap = float((lk - lp).abs().max())
+    smoke.check(tuple(logits.shape) == (B, 1, cfg.vocab) and bool(torch.isfinite(lk).all())
+                and gap <= LOGIT_TOL,
+                f"dryrun cell: logits {tuple(logits.shape)} finite, within {gap:.4f} of the "
+                f"plain route's (LOGIT_TOL {LOGIT_TOL})")
+    picked = lk.argmax(-1, keepdim=True)
+    below = float((lp.amax(-1, keepdim=True) - lp.gather(-1, picked)).max())
+    smoke.check(below <= LOGIT_TOL,
+                f"dryrun cell: the kernel route's tokens are each within {below:.4f} of their "
+                f"row's maximum on the plain route (LOGIT_TOL {LOGIT_TOL})")
+    da.update(B=B, S=S, host_ms=host_ms, device_ms=dev_ms, profiled_wall_ms=wall * 1e3,
+              busy_ms=busy * 1e3, peak_kernel=peak_k,
+              peak_plain=peak_p, predicted_peak=pred_peak, predicted_args=pred_args)
+    print("dryrun cell: " + json.dumps(da), flush=True)
+    del params, caches, logits, plain
+    _free(device)
+    return da, launches
+
+
+SHARD_KERNELS = (("cmul_mad", "cmul_mad"), ("mpf_pool", "mpf_pool"),
+                 ("direct_conv3d", "conv3d"), ("os_segment", "os_segment_conv"))
+
+
+@contextlib.contextmanager
+def recorded_calls(calls):
+    """Record the arguments of each call to the wrappers in
+    ``SHARD_KERNELS`` (the module attributes their callers go through)."""
+    import importlib
+
+    saved = []
+    for pkg, name in SHARD_KERNELS:
+        mod = importlib.import_module(f"repro_torch.kernels.{pkg}.ops")
+        fn = getattr(mod, name)
+
+        def rec(*a, _fn=fn, _name=name, **kw):
+            calls.append((_name, _fn, a, kw))
+            return _fn(*a, **kw)
+
+        saved.append((mod, name, fn))
+        setattr(mod, name, rec)
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _wrapper_work(name, a, out):
+    """(bytes, FLOPs) a wrapper call must move and do: each input read
+    once, the output written once; the operations as chip_smoke's other
+    phases count them."""
+    if name == "cmul_mad":
+        X, W = a[:2]
+        return _nb(X) + _nb(W) + _nb(out), 8.0 * X.shape[0] * X.shape[1] * out[0].numel()
+    if name == "mpf_pool":
+        x, p = a[:2]
+        return _nb(x) + _nb(out), float(out.numel()) * (p**3 - 1)
+    if name == "conv3d":
+        x, w = a[:2]
+        return _nb(x) + _nb(w) + _nb(out), 2.0 * out.numel() * x.shape[1] * math.prod(
+            w.shape[2:])
+    x, W, b, spec = a[:4]  # os_segment_conv
+    NQ, fp, n_fft = x.shape[0] * spec.n_segments, W.shape[0], math.prod(spec.fft_shape)
+    return (_nb(x) + _nb(W) + (0 if b is None else _nb(b)) + _nb(out),
+            8.0 * NQ * x.shape[1] * fp * W[0, 0].numel()
+            + NQ * (x.shape[1] + fp) * 2.5 * n_fft * math.log2(n_fft))
+
+
+def time_shard_kernels(smoke, device, run):
+    """Each kernel wrapper call of ``run`` (the shard on the kernels) held
+    against its plain version and timed beside it and its bound, at the
+    shard's shapes; returns {wrapper: (calls, ms, plain ms, bound ms)}."""
+    calls = []
+    with recorded_calls(calls):
+        run()
+    totals = {}
+    for name, fn, a, kw in calls:
+        got = fn(*a, **kw)
+        want = fn(*a, **dict(kw, use_kernels=False))
+        shapes = " ".join(str(tuple(t.shape)) for t in a if hasattr(t, "shape"))
+        if name == "cmul_mad":
+            err = _check_mad(smoke, f"shard cmul_mad {shapes}", a[0], a[1], got, want)
+        else:
+            ok, err = _close(got, want, **E2E)
+            smoke.check(ok, f"shard {name} {shapes} vs plain: max_abs_err {err:.3e}")
+        nbytes, flops = _wrapper_work(name, a, got)
+        bms, bb = bound(nbytes, flops)
+        ms = time_ms(lambda: fn(*a, **kw), device)
+        pms = time_ms(lambda: fn(*a, **dict(kw, use_kernels=False)), device, reps=2)
+        print(f"kernel {name} (shard) {shapes}: {ms:.3f} ms, plain {pms:.3f} ms, bound "
+              f"{bms:.3f} ms ({bb}); max_abs_err {err:.3e}", flush=True)
+        n, t, pt, bt = totals.get(name, (0, 0.0, 0.0, 0.0))
+        totals[name] = (n + 1, t + ms, pt + pms, bt + bms)
+        del got, want
+    calls.clear()
+    for name, (n, t, pt, bt) in totals.items():
+        print(f"kernel {name} (shard): {n} calls, {t:.3f} ms, plain {pt:.3f} ms, bound "
+              f"{bt:.3f} ms ({100 * bt / t:.1f}% of bound)", flush=True)
+    return totals
+
+
+def dryrun_znni_cell(smoke, device, net, m, seed=0):
+    """Phase 9b: one device's n537 x-shard on the card; returns its launches."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs.znni_nets import ZNNI_NETS
+    from repro_torch.core import convnet, planner
+    from repro_torch.core.distributed_inference import halo_sharded_apply
+    from repro_torch.core.hw import H100_SXM
+    from repro_torch.experiments import znni_dryrun
+
+    cuda = device.type == "cuda"
+    # the primitives plan_single picks for the full-width net
+    prims = [c.prim for c in planner.plan_single(ZNNI_NETS[net.name], H100_SXM,
+                                                 max_m=m).choices]
+    rec = znni_dryrun.shard_record(net, m, prims, verbose=False)
+    x_local, n_in, fov = rec["x_local"], rec["n_in"], net.field_of_view()
+    gen = torch.Generator().manual_seed(seed)
+    params = convnet.init_params(net, gen, device=device)
+    params = [None if p is None else (p[0], 0.1 * torch.randn(
+        p[1].shape, generator=gen).to(device)) for p in params]
+    x = torch.randn((1, net.in_channels, x_local, n_in, n_in), generator=gen).to(device)
+    _free(device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    with torch.no_grad():
+        y = halo_sharded_apply(params, net, x, prims)
+    _sync(device)
+    ms = (time.perf_counter() - t) * 1e3
+    counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated(device) if cuda else 0
+    pred = rec["meta"]["peak_bytes"]
+    print(f"dryrun znni {net.name}: one x-shard {tuple(x.shape)} on {prims}: {ms:.1f} ms on the "
+          f"host clock; predicted peak {pred} B (meta, plain route), max_memory_allocated "
+          f"{peak} B (ratio {peak / pred:.4f}); launches {counts}", flush=True)
+    with torch.no_grad():
+        device_profile(lambda: halo_sharded_apply(params, net, x, prims), device,
+                       f"one {net.name} x-shard (kernels)", top=16)
+    for name in ("conv3d", "os_segment_conv", "cmul_mad", "mpf_pool"):
+        smoke.check(counts[name] > 0,
+                    f"dryrun znni: {name} launched {counts[name]} times")
+    with torch.no_grad():
+        want = halo_sharded_apply(params, net, x, prims, use_kernels=False)
+    ok, err = _close(y, want, **E2E)
+    smoke.check(ok and list(y.shape) == rec["output_shape"] and bool(torch.isfinite(y).all()),
+                f"dryrun znni: shard output {tuple(y.shape)} vs the plain route: max_abs_err "
+                f"{err:.3e} (atol {E2E['atol']}, rtol {E2E['rtol']})")
+    del want
+    with torch.no_grad():
+        time_shard_kernels(smoke, device, lambda: halo_sharded_apply(params, net, x, prims))
+    _free(device)
+    print(f"dryrun znni: output planes of the {x_local}-plane shard the zero halo does not "
+          f"reach: {max(0, x_local - fov + 1)} (FOV {fov})", flush=True)
+    x2 = torch.randn((1, net.in_channels, DRYRUN_ORACLE_X, n_in, n_in),
+                     generator=gen).to(device)
+    with torch.no_grad():
+        y2 = halo_sharded_apply(params, net, x2, prims)
+        dense = convnet.apply_dense_reference(params, net, x2)
+    nv = DRYRUN_ORACLE_X - fov + 1
+    ok, err = _close(y2[:, :, :nv], dense, **E2E)
+    smoke.check(ok and dense.shape[2] == nv,
+                f"dryrun znni: a {DRYRUN_ORACLE_X}-plane shard's first {nv} planes vs "
+                f"apply_dense_reference {tuple(dense.shape)}: max_abs_err {err:.3e}")
+    del params, x, y, x2, y2, dense
+    _free(device)
+    return {k: counts[k] for k in counts}
+
+
+def run_dryrun(device, *, decode=None, znni=None, total=None, seed=0):
+    """Phase 9: the dry run's matrix, then its two one-device cells on the
+    card.  ``decode`` (config, shape), ``znni`` (net, m) and ``total`` (the
+    card's bytes) default to the full-size cells on this card."""
+    import torch
+
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.configs.znni_nets import ZNNI_NETS
+    from repro_torch.launch.mesh import make_host_mesh
+
+    smoke = Smoke()
+    t = time.perf_counter()
+    run_dryrun_matrix(smoke)
+    print(f"dryrun matrix phase: {time.perf_counter() - t:.1f} s", flush=True)
+    mesh = make_host_mesh() if device.type == "cuda" else make_host_mesh(device=device)
+    smoke.check(mesh.shape == (1, 1), f"dryrun: the host mesh {mesh.sizes} {mesh.devices}")
+    if decode is None:
+        decode = (get_config(DRYRUN_DECODE[0]), get_shape(DRYRUN_DECODE[1]))
+    if znni is None:
+        znni = (ZNNI_NETS[DRYRUN_ZNNI[0]], DRYRUN_ZNNI[1])
+    if total is None:
+        total = torch.cuda.get_device_properties(device).total_memory
+    t = time.perf_counter()
+    da, da_launches = dryrun_decode_cell(smoke, device, *decode, total, mesh, seed)
+    print(f"dryrun decode cell: {time.perf_counter() - t:.1f} s", flush=True)
+    t = time.perf_counter()
+    counts = dryrun_znni_cell(smoke, device, *znni, seed)
+    print(f"dryrun znni cell: {time.perf_counter() - t:.1f} s", flush=True)
+    counts["decode_attn"] = counts.get("decode_attn", 0) + da_launches
+    return da, counts, smoke.failures
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         # one rank of the distributed phase, started by run_distributed
@@ -4142,6 +4528,14 @@ def main() -> int:
     failures += fe_failures
     results["decode_attn"]["launches"] += fe_launches
     print(f"lm frontends phase: {time.perf_counter() - t:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    _, dr_counts, dr_failures = run_dryrun(device)
+    failures += dr_failures
+    for name in KERNELS:
+        results.setdefault(name, {})
+        results[name]["launches"] = results[name].get("launches", 0) + dr_counts.get(name, 0)
+    print(f"dryrun phase: {time.perf_counter() - t:.1f} s", flush=True)
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = results.get(name, {})

@@ -21,7 +21,7 @@ Both produce outputs identical to the single-worker run (tests assert it).
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -111,13 +111,16 @@ def halo_sharded_apply(
     prims: Sequence[str],
     *,
     group=None,
+    use_kernels: Optional[bool] = None,
 ) -> torch.Tensor:
     """Run the net on an x-sharded volume with per-conv halo exchange.
 
     Every rank of ``group`` calls it with its shard x_local
     (S, f, nx_local, ny, nz); every rank's nx_local must satisfy the same
     layer-validity constraints.  Pool layers consume exact multiples, so
-    no halo is needed there when nx_local ≡ per-rank fragments.
+    no halo is needed there when nx_local ≡ per-rank fragments.  Without a
+    group the one process is the chain's last rank: its halos are zeros.
+    ``use_kernels`` follows the port's dispatch rule.
     """
     S = x_local.shape[0]
     pools: List[int] = []
@@ -127,7 +130,7 @@ def halo_sharded_apply(
         if layer.kind == "conv":
             w, b = params[i]
             x_local = halo_exchange_x(x_local, layer.size - 1, group)
-            x_local = conv_apply(prims[i], x_local, w, b)
+            x_local = conv_apply(prims[i], x_local, w, b, use_kernels=use_kernels)
             if i != last_conv:
                 x_local = torch.relu(x_local)
         elif prims[i] == "mpf":
@@ -135,7 +138,7 @@ def halo_sharded_apply(
             # locally each shard pools its exact multiple then the
             # boundary column is exchanged
             x_local = halo_exchange_x(x_local, layer.size - 1, group)
-            x_local = mpf(x_local, layer.size)
+            x_local = mpf(x_local, layer.size, use_kernels=use_kernels)
             pools.append(layer.size)
         else:
             x_local = max_pool3d(x_local, layer.size)

@@ -6,9 +6,12 @@
                       all-gather, compressed mean, reduce-scatter mean).
 ``fault_tolerance`` — ``HeartbeatMonitor`` (failure and straggler
                       detection on a caller-supplied clock) and
-                      ``elastic_shard_sizes``.
+                      ``elastic_shard_sizes``, and ``restore_with_remesh``.
 ``host_group``      — process groups over ``torch.distributed`` (gloo),
                       every hand-off through host memory and counted.
+``sharding``        — the reference's name-based sharding rules, read by
+                      the dry run (``launch/dryrun.py``).
+``constraints``     — the reference's activation constraints, no-ops here.
 """
 
-from . import collectives, fault_tolerance, host_group  # noqa: F401
+from . import collectives, constraints, fault_tolerance, host_group, sharding  # noqa: F401

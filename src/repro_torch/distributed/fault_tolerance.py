@@ -1,4 +1,5 @@
-"""Failure detection, straggler flagging and elastic shard sizes.
+"""Failure detection, straggler flagging, elastic shard sizes and the
+remesh restore.
 
 ``HeartbeatMonitor`` derives per-step deadlines from a rolling median
 step time: a worker that misses ``patience`` deadlines is FAILED, one
@@ -6,6 +7,7 @@ whose own median is above ``straggler_factor`` × the fleet's (but alive)
 is a STRAGGLER.  The policy (``plan``) evicts failed workers first and
 rebalances stragglers otherwise.  Callers pass the clock (``now``), so a
 fleet on a synthetic clock runs its fault drills deterministically.
+``restore_with_remesh`` places a restored tree on a new mesh's shardings.
 """
 
 from __future__ import annotations
@@ -15,6 +17,31 @@ from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
 import numpy as np
+import torch
+
+from ..optim import tree as tree_lib
+
+
+def restore_with_remesh(tree: Any, shardings_new: Any) -> Any:
+    """Place each leaf of a restored tree on its sharding's mesh (a tree of
+    ``distributed.sharding.NamedSharding`` of the same structure).
+
+    On a one-device mesh that is the whole tensor on that device.  A mesh
+    of more devices, or a logical one, raises: the port has no collective
+    that would reslice a tensor over cards, and a tensor is never left
+    silently where it was."""
+
+    def place(x: torch.Tensor, s) -> torch.Tensor:
+        mesh = s.mesh
+        if mesh.devices is None or mesh.size != 1:
+            raise ValueError(
+                f"restore_with_remesh places tensors on a one-device mesh only; got a "
+                f"{'logical ' if mesh.devices is None else ''}mesh "
+                f"{dict(mesh.sizes)} of {mesh.size} devices")
+        return x.to(mesh.devices[0])
+
+    return tree_lib.tree_map(place, tree, shardings_new,
+                             is_leaf=lambda x: hasattr(x, "shape"))
 
 
 @dataclass

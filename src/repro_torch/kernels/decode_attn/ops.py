@@ -15,6 +15,13 @@ The kernel splits S into chunks of ``CHUNK`` rows, one block each, and a
 second kernel combines the chunks' f32 partials; the wrapper allocates
 their workspace through PyTorch's caching allocator (``ref.decode_attn_split``
 replays the split on the CPU).
+
+The launch is the custom operator ``repro_torch::decode_attn``, with a
+fake implementation and a FLOP formula of 4·B·H·S·d: the plain version's
+two einsums as ``FlopCounterMode`` counts them, which sees aten operators
+only and not a launch through ``ctypes``.  So a step counts the same
+FLOPs on the card as on ``meta`` tensors, where the dry run takes the
+plain route.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from .. import build
 from ..dispatch import check_no_grad, check_operand, resolve_use_kernels
@@ -68,6 +76,17 @@ def decode_attn(
         raise ValueError(f"decode_attn kernel needs G <= {MAX_G} and d <= {MAX_D} "
                          f"with d % 8 == 0, got G={G}, d={d}")
     lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+    return _launch(q, k, v, lengths)
+
+
+@torch.library.custom_op("repro_torch::decode_attn", mutates_args=())
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            lengths: torch.Tensor) -> torch.Tensor:
+    """The kernel launch on checked operands: q (B, H, d), k/v (B, S, Hkv,
+    d), lengths (B,) int32, all contiguous on the card."""
+    B, H, d = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
     out = torch.empty_like(q)
     # per (sequence, kv head, chunk): m[G], l[G], acc[G][d]
     part = torch.empty(B * Hkv * -(-S // CHUNK) * G * (d + 2), dtype=torch.float32,
@@ -79,3 +98,14 @@ def decode_attn(
     build.check(err, "decode_attn")
     launches["decode_attn"] += 1
     return out
+
+
+@_launch.register_fake
+def _(q, k, v, lengths):
+    return torch.empty_like(q)
+
+
+@register_flop_formula(torch.ops.repro_torch.decode_attn)
+def _flops(q_shape, k_shape, v_shape, lengths_shape, *args, **kwargs) -> int:
+    B, H, d = q_shape
+    return 4 * B * H * k_shape[1] * d

@@ -10,7 +10,11 @@ from .dot import mm
 
 def _normal(shape, std: float, dtype, device, generator) -> torch.Tensor:
     """N(0, std²) drawn in f32 on the generator's device, cast to dtype
-    (scaled in place: one f32 copy at a time)."""
+    (scaled in place: one f32 copy at a time).  On ``meta`` it draws
+    nothing: the shape-only init of the dry run (``jax.eval_shape`` of
+    ``init`` in the reference)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     x = torch.randn(shape, generator=generator, device=generator.device)
     return x.mul_(std).to(device=device, dtype=dtype)
 

@@ -1,10 +1,14 @@
 """Unified model API: ``build_model(cfg)`` -> init / forward / loss /
-prefill / decode_step / make_caches, on the decoder-only transformer or,
-for ``cfg.enc_dec``, the encoder-decoder.
+prefill / decode_step / make_caches / input_specs, on the decoder-only
+transformer or, for ``cfg.enc_dec``, the encoder-decoder.
 
-The reference's ``input_specs`` and ``make_caches(abstract=True)`` (shape
-stand-ins for its dry run) wait for the dry run (ROADMAP.md, Queue 1
-item 14.4).
+``input_specs(shape)`` returns ``meta`` stand-ins for every
+*non-parameter* input of the step the shape exercises (train -> the loss's
+inputs; prefill -> the token batch; decode -> one token and the caches),
+so the dry run (``launch/dryrun.py``) can run the step without
+allocating.  ``make_caches(B, S_max, device="meta")`` and
+``init(generator, device="meta")`` are the counterparts of the
+reference's ``make_caches(abstract=True)`` and ``jax.eval_shape(init)``.
 """
 
 from __future__ import annotations
@@ -14,9 +18,10 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
-from ..configs.base import ModelConfig
+from ..configs.base import ModelConfig, ShapeConfig
 from ..kernels.dispatch import DeviceLike
 from ..layers import embedding as emb_l
+from ..layers import stubs
 from . import encdec, transformer
 
 
@@ -29,6 +34,18 @@ class Model:
     prefill: Callable
     decode_step: Callable
     make_caches: Callable
+    input_specs: Callable
+
+
+def _frontend_specs(cfg: ModelConfig, B: int) -> Dict[str, torch.Tensor]:
+    dt = getattr(torch, cfg.dtype)
+    if cfg.frontend == "patch":
+        return {"patch_embeds": torch.empty((B, stubs.VLM_N_PATCHES, cfg.d_model), dtype=dt,
+                                            device="meta")}
+    if cfg.frontend == "audio":
+        return {"frame_embeds": torch.empty((B, cfg.enc_seq, cfg.d_model), dtype=dt,
+                                            device="meta")}
+    return {}
 
 
 def _module(cfg: ModelConfig):
@@ -63,4 +80,17 @@ def build_model(cfg: ModelConfig) -> Model:
     def make_caches(B: int, S_max: int, *, device: DeviceLike = None):
         return mod.make_caches(cfg, B, S_max, device=device)
 
-    return Model(cfg, init, forward, loss, prefill, decode_step, make_caches)
+    def input_specs(shape: ShapeConfig) -> Dict[str, Any]:
+        B, S = shape.global_batch, shape.seq_len
+
+        def tok(*dims):
+            return torch.empty(dims, dtype=torch.int32, device="meta")
+
+        if shape.kind == "train":
+            return {"tokens": tok(B, S), "labels": tok(B, S), **_frontend_specs(cfg, B)}
+        if shape.kind == "prefill":
+            return {"tokens": tok(B, S), **_frontend_specs(cfg, B)}
+        # decode: one new token against a cache of S entries
+        return {"tokens": tok(B, 1), "caches": make_caches(B, S, device="meta")}
+
+    return Model(cfg, init, forward, loss, prefill, decode_step, make_caches, input_specs)

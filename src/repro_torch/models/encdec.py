@@ -231,7 +231,8 @@ def decode_step(params, cfg: ModelConfig, tokens, caches, *,
 
 def make_caches(cfg: ModelConfig, B: int, S_max: int, *, device: DeviceLike = None):
     """Zero caches matching prefill's output layout, on ``device``
-    (``None``: the card)."""
+    (``None``: the card); ``device="meta"`` gives the shape stand-ins of
+    the reference's ``abstract=True``."""
     dev = resolve_device(device)
     a = cfg.attn
     L = cfg.n_layers

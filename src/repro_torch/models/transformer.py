@@ -330,8 +330,8 @@ def _cache_shape_for(cfg: ModelConfig, tok: str, B: int, S_max: int):
 
 def make_caches(cfg: ModelConfig, B: int, S_max: int, *, device: DeviceLike = None):
     """Zero caches matching prefill's output layout, on ``device``
-    (``None``: the card).  The reference's ``abstract=True`` variant
-    (shape stand-ins for its dry run) waits with the dry run."""
+    (``None``: the card); ``device="meta"`` gives the shape stand-ins of
+    the reference's ``abstract=True``."""
     dev = resolve_device(device)
     PL = len(cfg.block_pattern)
     R = cfg.n_layers // PL

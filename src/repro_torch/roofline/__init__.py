@@ -1,3 +1,3 @@
 """Roofline terms on a device profile (the port of ``repro.roofline``)."""
 
-from .analysis import RooflineTerms, roofline  # noqa: F401
+from .analysis import RooflineTerms, StepCounts, count_step, roofline  # noqa: F401

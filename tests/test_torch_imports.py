@@ -60,6 +60,14 @@ MODULES = (
     "repro_torch.models.api",
     "repro_torch.launch.train",
     "repro_torch.examples.serve_lm",
+    "repro_torch.flags",
+    "repro_torch.launch.mesh",
+    "repro_torch.launch.dryrun",
+    "repro_torch.distributed.sharding",
+    "repro_torch.distributed.constraints",
+    "repro_torch.experiments.make_tables",
+    "repro_torch.experiments.hillclimb",
+    "repro_torch.experiments.znni_dryrun",
 )
 
 
