@@ -2191,6 +2191,19 @@ LOGIT_TOL = 1.0
 ROUTER_TOL = 1.0
 # decode_attn tolerances: the reference's (tests/test_kernels.py)
 DA_TOL = {"bfloat16": dict(atol=2e-2, rtol=1e-2), "float32": dict(atol=1e-4, rtol=1e-4)}
+# decode_attn at the dry run's decode cell, S = 32,768 in S / CHUNK = 128
+# chunks, with q, k and v drawn N(0, 1): the scores are ~N(0, 1), ~12k rows
+# carry the softmax weight and the outputs are ~N(0, 0.009^2), far under
+# DA_TOL bfloat16's atol.  So the combine is gated there in float32 at
+# DA_TOL float32, and in bfloat16 at an atol set from readings, where each
+# fault planted in the kernel route must fail: the cache's last chunk left
+# out, the last chunk read as the one before it, each sequence's partials
+# folded into the next one's.  Readings (this script on an NVIDIA H100
+# 80GB HBM3 at 700 W; max |want| 0.048): float32 sound 3.2e-08, the faults
+# 4.96e-03 / 5.79e-03 / 5.40e-02; bfloat16 sound 2.44e-04, the faults
+# 4.93e-03 / 5.76e-03 / 5.41e-02
+DA_COMBINE_FAULTS = ("chunk", "dup", "slot")
+DA_COMBINE_TOL = {"bfloat16": dict(atol=1e-3, rtol=0.0), "float32": DA_TOL["float32"]}
 
 
 class Routes:
@@ -2342,6 +2355,70 @@ def check_decode_attn(smoke, device, gen, cases, timed=True):
               f"{valid:.0f} valid rows", flush=True)
         result = r
     return result
+
+
+def check_decode_attn_combine(smoke, device, gen, label, B, S, Hkv, G, d):
+    """``decode_attn`` over all S rows of each sequence, in float32 and in
+    bfloat16 on the same draws: within ``DA_COMBINE_TOL`` of its plain
+    version, and with each of ``DA_COMBINE_FAULTS`` planted, outside it.
+    Returns the readings by dtype."""
+    import torch
+
+    from repro_torch.kernels.decode_attn import ops as da_ops
+
+    H = Hkv * G
+    drawn = [torch.randn(shape, generator=gen) for shape in ((B, H, d), (B, S, Hkv, d),
+                                                              (B, S, Hkv, d))]
+    lengths = torch.full((B,), S, dtype=torch.int32, device=device)
+    readings = {}
+    for dt in ("float32", "bfloat16"):
+        tol = DA_COMBINE_TOL[dt]
+        q, k, v = (t.to(device, getattr(torch, dt)) for t in drawn)
+        want = da_ops.decode_attn(q, k, v, lengths, use_kernels=False).float()
+        r = readings[dt] = {"max_abs_want": float(want.abs().max())}
+        for kind in ("sound",) + DA_COMBINE_FAULTS:
+            with (contextlib.nullcontext() if kind == "sound"
+                  else planted_decode_attn_fault(kind)):
+                got = da_ops.decode_attn(q, k, v, lengths).float()
+            ok, r[kind] = _close(got, want, **tol)
+            smoke.check(ok == (kind == "sound"),
+                        f"decode_attn ({label}) over {-(-S // da_ops.CHUNK)} chunks, {dt}, "
+                        f"{kind}{' (planted)' * (kind != 'sound')}: max_abs_err "
+                        f"{r[kind]:.3e}, {'inside' if ok else 'outside'} atol {tol['atol']} "
+                        f"rtol {tol['rtol']} (max |want| {r['max_abs_want']:.3e})")
+            del got
+        print(f"decode_attn ({label}) combine readings, {dt}: " + json.dumps(r), flush=True)
+        del q, k, v, want
+    return readings
+
+
+def decode_attn_host_us(device, turns=3, calls=200):
+    """Host microseconds a ``decode_attn`` call at a small, launch-bound
+    shape (q (1, 40, 128), k/v (1, 256, 8, 128) bf16): the wrapper with no
+    dispatch mode active, as served, and its custom operator, the route a
+    ``FlopCounterMode`` sees; in turns, the host clock read before the
+    synchronize.  Returns the best turn of each."""
+    import torch
+
+    from repro_torch.kernels.decode_attn import ops as da_ops
+
+    q = torch.randn((1, 40, 128), device=device, dtype=torch.bfloat16)
+    k = torch.randn((1, 256, 8, 128), device=device, dtype=torch.bfloat16)
+    lengths = torch.full((1,), 256, dtype=torch.int32, device=device)
+    routes = {"wrapper": lambda: da_ops.decode_attn(q, k, k, lengths),
+              "operator": lambda: da_ops._operator(q, k, k, lengths)}
+    best = {}
+    for _ in range(turns):
+        for name, fn in routes.items():
+            fn()
+            _sync(device)
+            t = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            us = (time.perf_counter() - t) / calls * 1e6
+            _sync(device)
+            best[name] = min(best.get(name, us), us)
+    return best
 
 
 def serve_lm(smoke, device, cfg, *, slots, max_seq, n_requests, prompt_range,
@@ -2967,7 +3044,8 @@ def patch_path(smoke, device, model, params, n_patches, prompt_len, new, gated, 
 @contextlib.contextmanager
 def planted_decode_attn_fault(kind):
     """``decode_attn``'s kernel route, while the block runs, given a fault
-    (``DA_FAULTS``); its plain route (``use_kernels=False``) untouched."""
+    (``DA_FAULTS``, ``DA_COMBINE_FAULTS``); its plain route
+    (``use_kernels=False``) untouched."""
     from repro_torch.kernels.decode_attn import ops
 
     sound = ops.decode_attn
@@ -2982,6 +3060,12 @@ def planted_decode_attn_fault(kind):
                 k, v = k.roll(1, 1), v.roll(1, 1)
             elif kind == "kv":
                 k, v = v, k
+            elif kind == "chunk":
+                lengths = lengths - ops.CHUNK
+            elif kind == "dup":
+                n = min(ops.CHUNK, k.shape[1] // 2)
+                k, v = k.clone(), v.clone()
+                k[:, -n:], v[:, -n:] = k[:, -2 * n:-n], v[:, -2 * n:-n]
         return sound(q, k, v, lengths, use_kernels=use_kernels)
 
     ops.decode_attn = faulty
@@ -4144,6 +4228,16 @@ def dryrun_decode_cell(smoke, device, cfg, shape, total, mesh, seed=0):
         f"{cfg.name} x {shape.name}", B, S, a.n_kv_heads, a.n_heads_eff // a.n_kv_heads,
         a.head_dim, cfg.dtype, [S] * B)])
     _free(device)
+    combine = check_decode_attn_combine(
+        smoke, device, torch.Generator().manual_seed(seed + 11), f"{cfg.name} x {shape.name}",
+        B, S, a.n_kv_heads, a.n_heads_eff // a.n_kv_heads, a.head_dim)
+    _free(device)
+    if cuda:
+        host_us = decode_attn_host_us(device)
+        print(f"decode_attn host time a call (q (1, 40, 128), k/v (1, 256, 8, 128) bf16, best "
+              f"of 3 turns of 200): {host_us['wrapper']:.2f} us through the wrapper with no "
+              f"dispatch mode active (as served), {host_us['operator']:.2f} us through its "
+              f"custom operator (as counted)", flush=True)
 
     t = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -4225,7 +4319,8 @@ def dryrun_decode_cell(smoke, device, cfg, shape, total, mesh, seed=0):
                 f"row's maximum on the plain route (LOGIT_TOL {LOGIT_TOL})")
     da.update(B=B, S=S, host_ms=host_ms, device_ms=dev_ms, profiled_wall_ms=wall * 1e3,
               busy_ms=busy * 1e3, peak_kernel=peak_k,
-              peak_plain=peak_p, predicted_peak=pred_peak, predicted_args=pred_args)
+              peak_plain=peak_p, predicted_peak=pred_peak, predicted_args=pred_args,
+              combine=combine)
     print("dryrun cell: " + json.dumps(da), flush=True)
     del params, caches, logits, plain
     _free(device)

@@ -11,11 +11,10 @@ import json
 import os
 import sys
 
-DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..", "..",
-                   "experiments", "dryrun_torch")
+from ..launch.dryrun import DEFAULT_OUT
 
 
-def load(tag="baseline", directory=DIR):
+def load(tag="baseline", directory=DEFAULT_OUT):
     recs = []
     for f in sorted(glob.glob(os.path.join(directory, f"{tag}__*.json"))):
         with open(f) as fh:

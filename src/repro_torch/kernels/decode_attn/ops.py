@@ -16,12 +16,14 @@ second kernel combines the chunks' f32 partials; the wrapper allocates
 their workspace through PyTorch's caching allocator (``ref.decode_attn_split``
 replays the split on the CPU).
 
-The launch is the custom operator ``repro_torch::decode_attn``, with a
-fake implementation and a FLOP formula of 4·B·H·S·d: the plain version's
-two einsums as ``FlopCounterMode`` counts them, which sees aten operators
-only and not a launch through ``ctypes``.  So a step counts the same
-FLOPs on the card as on ``meta`` tensors, where the dry run takes the
-plain route.
+Under a dispatch mode (``FlopCounterMode``, the dry run's counters) the
+launch goes through the custom operator ``repro_torch::decode_attn``,
+with a fake implementation and a FLOP formula of 4·B·H·S·d: the plain
+version's two einsums as ``FlopCounterMode`` counts them, which sees
+aten operators only and not a launch through ``ctypes``.  So a step
+counts the same FLOPs on the card as on ``meta`` tensors, where the dry
+run takes the plain route.  With no mode active the wrapper launches
+directly, and serving pays nothing for the dispatcher.
 """
 
 from __future__ import annotations
@@ -76,10 +78,11 @@ def decode_attn(
         raise ValueError(f"decode_attn kernel needs G <= {MAX_G} and d <= {MAX_D} "
                          f"with d % 8 == 0, got G={G}, d={d}")
     lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
+    if torch._C._len_torch_dispatch_stack():
+        return _operator(q, k, v, lengths)
     return _launch(q, k, v, lengths)
 
 
-@torch.library.custom_op("repro_torch::decode_attn", mutates_args=())
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lengths: torch.Tensor) -> torch.Tensor:
     """The kernel launch on checked operands: q (B, H, d), k/v (B, S, Hkv,
@@ -100,7 +103,14 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out
 
 
-@_launch.register_fake
+@torch.library.custom_op("repro_torch::decode_attn", mutates_args=())
+def _operator(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              lengths: torch.Tensor) -> torch.Tensor:
+    """``_launch`` as an operator that a dispatch mode sees and counts."""
+    return _launch(q, k, v, lengths)
+
+
+@_operator.register_fake
 def _(q, k, v, lengths):
     return torch.empty_like(q)
 

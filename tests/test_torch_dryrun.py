@@ -146,12 +146,41 @@ def test_decode_attn_operator_counts_as_its_plain_version():
     lengths = torch.empty((2,), dtype=torch.int32, device="meta")
     counted = []
     for fn in (lambda: da_ops.decode_attn(q, k, k, lengths),  # meta: the plain route
-               lambda: da_ops._launch(q, k, k, lengths)):  # the kernel's operator
+               lambda: da_ops._operator(q, k, k, lengths)):  # the kernel's operator
         with FlopCounterMode(display=False) as fc:
             out = fn()
         assert out.shape == q.shape
         counted.append(fc.get_total_flops())
     assert counted[0] == counted[1] == 4 * 2 * 10 * 33 * 16
+
+
+def test_decode_attn_takes_its_operator_only_under_a_dispatch_mode(monkeypatch):
+    # the kernel route on CPU tensors, its checks and launch stood in for:
+    # served calls reach the launch directly, counted ones through the
+    # operator and its FLOP formula
+    monkeypatch.setattr(da_ops, "resolve_use_kernels", lambda use_kernels, t: True)
+    monkeypatch.setattr(da_ops, "check_operand", lambda t, name, dtype: None)
+    routes, operator = [], da_ops._operator
+
+    def launch(q, k, v, lengths):
+        routes.append("launch")
+        return torch.zeros_like(q)
+
+    def counted(*args):
+        routes.append("operator")
+        return operator(*args)
+
+    monkeypatch.setattr(da_ops, "_launch", launch)
+    monkeypatch.setattr(da_ops, "_operator", counted)
+    q = torch.zeros((2, 10, 16))
+    k = torch.zeros((2, 33, 2, 16))
+    lengths = torch.full((2,), 33, dtype=torch.int32)
+    assert da_ops.decode_attn(q, k, k, lengths).shape == q.shape
+    assert routes == ["launch"]
+    with FlopCounterMode(display=False) as fc:
+        assert da_ops.decode_attn(q, k, k, lengths).shape == q.shape
+    assert routes == ["launch", "operator", "launch"]
+    assert fc.get_total_flops() == 4 * 2 * 10 * 33 * 16
 
 
 # -- the matrix ----------------------------------------------------------------------
