@@ -72,6 +72,7 @@ import numpy as np
 from ..configs.base import ConvNetConfig
 from ..core.planner import Plan
 from ..kernels.dispatch import DeviceLike
+from ..trace import span, spanned
 from ..volume.executor import PlanExecutor
 from ..volume.tiler import (
     VolumeTiling,
@@ -234,6 +235,7 @@ class VolumeEngine:
 
     # -- admission ----------------------------------------------------------
 
+    @spanned("engine.submit")
     def submit(self, req: VolumeRequest) -> None:
         ex = self.executor
         axis = ex.sweep_axis if req.sweep_axis is None else int(req.sweep_axis)
@@ -333,9 +335,21 @@ class VolumeEngine:
                 break
             items.append((req, req._patches.popleft()))
 
+    @spanned("engine.step")
     def step(self) -> int:
         """One fused batch over the priority-ordered patch queue; returns
         the number of real (non-padding) patches processed."""
+        with span("engine.schedule"):
+            items = self._schedule()
+        if not items:
+            return 0
+        ys = self._run(items)
+        with span("engine.write_back"):
+            self._write_back(items, ys)
+        return len(items)
+
+    def _schedule(self) -> List[Tuple[VolumeRequest, int]]:
+        """Pop this tick's (request, patch index) pairs."""
         items: List[Tuple[VolumeRequest, int]] = []
         deferred: List[VolumeRequest] = []
         pending_est = 0.0
@@ -362,8 +376,10 @@ class VolumeEngine:
             # the budget, admit the highest-ranked one anyway (one sweep at
             # a time always fits by construction of the estimate)
             self._pop_plane_capped(deferred[0], items)
-        if not items:
-            return 0
+        return items
+
+    def _run(self, items: List[Tuple[VolumeRequest, int]]) -> np.ndarray:
+        """The tick's patches through the executor: (S_run, out_ch, core³)."""
         ex = self.executor
         # a drained-queue tail runs at the executor's bucketed batch size
         # (next power of two, or exactly len(items) if already compiled):
@@ -393,8 +409,8 @@ class VolumeEngine:
                 for req, idx in items
             ]
             meta += [meta[-1]] * (S_run - len(items))
-            ys = ex.run_patch_batch(None, meta=meta)
-        else:
+            return ex.run_patch_batch(None, meta=meta)
+        with span("engine.extract"):
             xs = np.stack(
                 [
                     extract_patch(req._padded, req._tiling.patches[idx], req._tiling.extent)
@@ -405,7 +421,12 @@ class VolumeEngine:
                 xs = np.concatenate(
                     [xs, np.repeat(xs[-1:], S_run - len(items), axis=0)]
                 )
-            ys = ex.run_patch_batch(xs)
+        return ex.run_patch_batch(xs)
+
+    def _write_back(self, items: List[Tuple[VolumeRequest, int]], ys) -> None:
+        """Each patch's core into its request's output; completions and
+        the tick's counters."""
+        ex = self.executor
         completed: List[VolumeRequest] = []
         for (req, idx), y in zip(items, ys):
             ex.write_core(req.out, req._tiling, req._tiling.patches[idx], y)
@@ -426,7 +447,6 @@ class VolumeEngine:
         # lifetime peak across all sweeps served so far (the shared budget
         # the scheduler defends)
         ex.last_stats["peak_device_bytes"] = ex._ledger.peak
-        return len(items)
 
     def run_until_drained(self, max_ticks: int = 100_000) -> List[VolumeRequest]:
         for _ in range(max_ticks):

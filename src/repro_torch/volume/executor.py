@@ -122,6 +122,7 @@ from ..core.staging import HostStager, pin
 from ..distributed.host_group import all_gather_cat, group_rank, group_size
 from ..kernels.dispatch import DeviceLike, resolve_device, resolve_use_kernels
 from ..kernels.os_segment import ops as _seg_ops
+from ..trace import span, spanned
 from ..tuning.store import TunedConfig, load_tuned_config
 from .tiler import (
     HaloSpec,
@@ -547,6 +548,7 @@ class PlanExecutor:
 
     # -- overlap-save sweep cache -------------------------------------------
 
+    @spanned("exec.begin_sweep")
     def begin_sweep(
         self, padded: np.ndarray, *, sweep_axis: Optional[int] = None
     ) -> int:
@@ -745,43 +747,46 @@ class PlanExecutor:
         i = 1
         while i < len(self.net.layers):
             pl = self.compiled.layers[i]
-            if capture:
-                h = self.net.layers[i].size - 1
-                halos.append(x[:, :, -h:])
-            if self.fuse_os and i in self._fused_pairs:
-                nxt = self.compiled.layers[i + 1]
-                x, pool_halo = fft_conv_pool_fused_halo(
-                    x, states[i]["W"], states[i]["b"],
-                    fft_shape=pl.fft_shape, k=pl.kernel_size,
-                    p=nxt.pool_size, halo_cols=nxt.pool_size - 1,
-                    use_kernels=self._use_kernels,
-                    fprime_chunk=pl.fprime_chunk,
-                )
+            with span(f"exec.layer.{i}"):
                 if capture:
-                    halos.append(pool_halo)
-                i += 2
-                continue
-            x = resolve_primitive(pl).apply(
-                pl, x, states[i], use_kernels=self._use_kernels
-            )
-            if pl.kind == "conv" and i != last_conv:
-                x = torch.relu(x)
+                    h = self.net.layers[i].size - 1
+                    halos.append(x[:, :, -h:])
+                if self.fuse_os and i in self._fused_pairs:
+                    nxt = self.compiled.layers[i + 1]
+                    x, pool_halo = fft_conv_pool_fused_halo(
+                        x, states[i]["W"], states[i]["b"],
+                        fft_shape=pl.fft_shape, k=pl.kernel_size,
+                        p=nxt.pool_size, halo_cols=nxt.pool_size - 1,
+                        use_kernels=self._use_kernels,
+                        fprime_chunk=pl.fprime_chunk,
+                    )
+                    if capture:
+                        halos.append(pool_halo)
+                    i += 2
+                    continue
+                x = resolve_primitive(pl).apply(
+                    pl, x, states[i], use_kernels=self._use_kernels
+                )
+                if pl.kind == "conv" and i != last_conv:
+                    x = torch.relu(x)
             i += 1
         if self.uses_mpf:
-            x = recombine_fragments(x, list(self.compiled.mpf_pools), S)
+            with span("exec.recombine"):
+                x = recombine_fragments(x, list(self.compiled.mpf_pools), S)
         return x, tuple(halos)
 
     def _os_walk(self, states, F, *, capture: bool = False):
         """Forward from precomputed layer-0 segment spectra
         F (S, n_seg, f, ña, ñb, ñc).  Returns ``(out, halos)``."""
         pl0 = self.compiled.layers[0]
-        x = os_mod.os_apply_from_spectra(
-            F, states[0]["W"], states[0]["b"], pl0.os_spec,
-            use_kernels=self._use_kernels,
-        )
-        last_conv = max(i for i, l in enumerate(self.net.layers) if l.kind == "conv")
-        if last_conv != 0:
-            x = torch.relu(x)
+        with span("exec.layer0"):
+            x = os_mod.os_apply_from_spectra(
+                F, states[0]["W"], states[0]["b"], pl0.os_spec,
+                use_kernels=self._use_kernels,
+            )
+            last_conv = max(i for i, l in enumerate(self.net.layers) if l.kind == "conv")
+            if last_conv != 0:
+                x = torch.relu(x)
         return self._walk_below_input(states, x, F.shape[0], capture=capture)
 
     def _assemble_spectra(self, Fm, parents, pattern, rows_per_patch):
@@ -798,8 +803,10 @@ class PlanExecutor:
         spec0 = self.compiled.layers[0].os_spec
         Fm = None
         if starts is not None:
-            Fm = os_mod.slice_segment_spectra(vol, starts, spec0, self.extent)
-        F_all = self._assemble_spectra(Fm, parents, pattern, spec0.n_segments)
+            with span("exec.segment_fft"):
+                Fm = os_mod.slice_segment_spectra(vol, starts, spec0, self.extent)
+        with span("exec.assemble"):
+            F_all = self._assemble_spectra(Fm, parents, pattern, spec0.n_segments)
         out, halos = self._os_walk(states, F_all, capture=self.deep_reuse)
         return out, Fm, halos
 
@@ -817,46 +824,51 @@ class PlanExecutor:
         spec0 = self.compiled.layers[0].os_spec
         Fm = None
         if starts is not None:
-            Fm = os_mod.slice_segment_spectra(vol, starts, spec0, self.extent)
-        F = self._assemble_spectra(Fm, parents, pattern, self._q_strip)
+            with span("exec.segment_fft"):
+                Fm = os_mod.slice_segment_spectra(vol, starts, spec0, self.extent)
+        with span("exec.assemble"):
+            F = self._assemble_spectra(Fm, parents, pattern, self._q_strip)
         S = F.shape[0]
-        x = os_mod.os_apply_tail_from_spectra(
-            F, states[0]["W"], states[0]["b"], spec0, self.core,
-            use_kernels=self._use_kernels,
-        )
         last_conv = max(i for i, l in enumerate(self.net.layers) if l.kind == "conv")
-        if last_conv != 0:
-            x = torch.relu(x)
+        with span("exec.layer0"):
+            x = os_mod.os_apply_tail_from_spectra(
+                F, states[0]["W"], states[0]["b"], spec0, self.core,
+                use_kernels=self._use_kernels,
+            )
+            if last_conv != 0:
+                x = torch.relu(x)
         new_halos = []
         i = 1
         while i < len(self.net.layers):
             pl = self._strip_layers[i]
             h, _ = self._strip_info[i]
-            x = torch.cat([halos[i - 1], x], dim=2)
-            new_halos.append(x[:, :, -h:])
-            if self.fuse_os and i in self._fused_pairs:
-                # the pool layer's input is the cached lead halo halos[i] +
-                # the conv's ReLU output, assembled inside the fused call
-                nxt = self._strip_layers[i + 1]
-                h_pool, _ = self._strip_info[i + 1]
-                x, pool_halo = fft_conv_pool_fused_halo(
-                    x, strip_states[i]["W"], strip_states[i]["b"],
-                    fft_shape=pl.fft_shape, k=pl.kernel_size,
-                    p=nxt.pool_size, halo_cols=h_pool, lead=halos[i],
-                    use_kernels=self._use_kernels,
-                    fprime_chunk=pl.fprime_chunk,
+            with span(f"exec.layer.{i}"):
+                x = torch.cat([halos[i - 1], x], dim=2)
+                new_halos.append(x[:, :, -h:])
+                if self.fuse_os and i in self._fused_pairs:
+                    # the pool layer's input is the cached lead halo halos[i] +
+                    # the conv's ReLU output, assembled inside the fused call
+                    nxt = self._strip_layers[i + 1]
+                    h_pool, _ = self._strip_info[i + 1]
+                    x, pool_halo = fft_conv_pool_fused_halo(
+                        x, strip_states[i]["W"], strip_states[i]["b"],
+                        fft_shape=pl.fft_shape, k=pl.kernel_size,
+                        p=nxt.pool_size, halo_cols=h_pool, lead=halos[i],
+                        use_kernels=self._use_kernels,
+                        fprime_chunk=pl.fprime_chunk,
+                    )
+                    new_halos.append(pool_halo)
+                    i += 2
+                    continue
+                x = resolve_primitive(pl).apply(
+                    pl, x, strip_states[i], use_kernels=self._use_kernels
                 )
-                new_halos.append(pool_halo)
-                i += 2
-                continue
-            x = resolve_primitive(pl).apply(
-                pl, x, strip_states[i], use_kernels=self._use_kernels
-            )
-            if pl.kind == "conv" and i != last_conv:
-                x = torch.relu(x)
+                if pl.kind == "conv" and i != last_conv:
+                    x = torch.relu(x)
             i += 1
         if self.uses_mpf:
-            x = recombine_fragments(x, list(self.compiled.mpf_pools), S)
+            with span("exec.recombine"):
+                x = recombine_fragments(x, list(self.compiled.mpf_pools), S)
         return x, Fm, tuple(new_halos)
 
     # -- batches ---------------------------------------------------------------
@@ -875,6 +887,24 @@ class PlanExecutor:
         if len(tokens) > 1:
             return self._run_os_batch_mixed(meta)
         token = next(iter(tokens))
+        with span("exec.resolve"):
+            groups = self._os_groups(token, meta)
+        halo_cache = self._halo_caches[token]
+        outs: List[Optional[np.ndarray]] = [None] * len(meta)
+        for rows, strip in groups:
+            ys, halos = self._run_os_group(token, [meta[i] for i in rows], strip)
+            for j, idx in enumerate(rows):
+                outs[idx] = ys[j]
+            if self.deep_reuse:
+                with span("exec.store"):
+                    self._store_halos(halo_cache, [meta[i] for i in rows], halos)
+        with span("exec.gather"):
+            return np.stack(outs)
+
+    def _os_groups(self, token, meta) -> List[Tuple[List[int], bool]]:
+        """Evict what the batch moved past, then partition its rows into
+        the full group and the interior-strip group (per x-plane when
+        streaming): ``[(rows, strip)]``."""
         self._sweeps.setdefault(token, {})
         halo_cache = self._halo_caches.setdefault(token, {})
         # keyed by patch START, so a strip patch never evicts a key a
@@ -906,14 +936,7 @@ class PlanExecutor:
                 groups.extend((by_plane[x], strip) for x in sorted(by_plane))
             else:
                 groups.append((rows, strip))
-        outs: List[Optional[np.ndarray]] = [None] * len(meta)
-        for rows, strip in groups:
-            ys, halos = self._run_os_group(token, [meta[i] for i in rows], strip)
-            for j, idx in enumerate(rows):
-                outs[idx] = ys[j]
-            if self.deep_reuse:
-                self._store_halos(halo_cache, [meta[i] for i in rows], halos)
-        return np.stack(outs)
+        return groups
 
     def _run_os_group(self, token, metas, strip: bool):
         """Resolve + run one homogeneous (full or strip) patch group.
@@ -922,12 +945,68 @@ class PlanExecutor:
         within the group dedup; the strip group runs after the full group
         and sees its fresh ``_SpectrumRef``s.  Returns ``(outputs, halos)``.
         """
-        spec0 = self.compiled.layers[0].os_spec
         cache = self._sweeps[token]
         states, strip_states = self._states_for_axis(
             self._sweep_axes.get(token, self.sweep_axis)
         )
-        n_seg = spec0.n_segments
+        with span("exec.resolve"):
+            misses, pattern, parents = self._resolve_keys(cache, metas, strip)
+        if self.streaming:
+            # the group is one x-plane: its segments all lie in the staged
+            # slab [x0, x0 + span), so miss starts shift into slab
+            # coordinates and the step's volume operand keeps one shape
+            x0 = metas[0][2][0]
+            with span("exec.upload"):
+                vol, ready = self._slab(token, x0)
+                self._stager.wait(ready)
+            off = np.asarray([x0, 0, 0], np.int64)
+        else:
+            vol = self._sweep_vols[token]
+            off = np.zeros(3, np.int64)
+        starts = np.asarray(misses, np.int64) - off if misses else None
+        if strip:
+            with span("exec.assemble"):
+                halos_in = tuple(
+                    torch.cat(
+                        [self._halo_caches[token][m[2]][pos] for m in metas], dim=0
+                    )
+                    for pos in range(len(self.net.layers) - 1)
+                )
+            self._record_trace(
+                ("strip", tuple(pattern), None if starts is None else len(misses),
+                 tuple(vol.shape), len(parents))
+            )
+            out, F_m, halos = self._os_strip_step(
+                states, strip_states, vol, starts, tuple(parents), halos_in,
+                pattern=tuple(pattern),
+            )
+            self._deep_strips += len(metas)
+        else:
+            self._record_trace(
+                ("full", tuple(pattern), None if starts is None else len(misses),
+                 tuple(vol.shape), len(parents))
+            )
+            out, F_m, halos = self._os_step(
+                states, vol, starts, tuple(parents), pattern=tuple(pattern)
+            )
+            self._deep_fulls += len(metas)
+        # transient sample: group output + miss spectra + captured halos in
+        # flight on top of the resident working set
+        self._ledger.transient(
+            _nbytes(out)
+            + (_nbytes(F_m) if F_m is not None else 0)
+            + sum(_nbytes(h) for h in halos)
+        )
+        with span("exec.store"):
+            self._store_spectra(token, cache, misses, F_m)
+        with span("exec.copy_back"):
+            return out.cpu().numpy(), halos
+
+    def _resolve_keys(self, cache, metas, strip: bool):
+        """A group's segment keys against the sweep's cache: ``(misses,
+        pattern, parents)``, each miss filed as a ``_PendingMiss``; counts
+        the hits, misses, MAD segments and fused-pair calls."""
+        n_seg = self.compiled.layers[0].os_spec.n_segments
         q = self._q_strip if strip else n_seg
         misses: List[Tuple[int, int, int]] = []
         pattern: List[Tuple[int, int]] = []
@@ -954,52 +1033,7 @@ class PlanExecutor:
         self._os_mad_segments += len(pattern)
         if self.fuse_os:
             self._fused_pair_calls += len(metas) * len(self._fused_pairs)
-        if self.streaming:
-            # the group is one x-plane: its segments all lie in the staged
-            # slab [x0, x0 + span), so miss starts shift into slab
-            # coordinates and the step's volume operand keeps one shape
-            x0 = metas[0][2][0]
-            vol, ready = self._slab(token, x0)
-            self._stager.wait(ready)
-            off = np.asarray([x0, 0, 0], np.int64)
-        else:
-            vol = self._sweep_vols[token]
-            off = np.zeros(3, np.int64)
-        starts = np.asarray(misses, np.int64) - off if misses else None
-        if strip:
-            halos_in = tuple(
-                torch.cat(
-                    [self._halo_caches[token][m[2]][pos] for m in metas], dim=0
-                )
-                for pos in range(len(self.net.layers) - 1)
-            )
-            self._record_trace(
-                ("strip", tuple(pattern), None if starts is None else len(misses),
-                 tuple(vol.shape), len(parents))
-            )
-            out, F_m, halos = self._os_strip_step(
-                states, strip_states, vol, starts, tuple(parents), halos_in,
-                pattern=tuple(pattern),
-            )
-            self._deep_strips += len(metas)
-        else:
-            self._record_trace(
-                ("full", tuple(pattern), None if starts is None else len(misses),
-                 tuple(vol.shape), len(parents))
-            )
-            out, F_m, halos = self._os_step(
-                states, vol, starts, tuple(parents), pattern=tuple(pattern)
-            )
-            self._deep_fulls += len(metas)
-        # transient sample: group output + miss spectra + captured halos in
-        # flight on top of the resident working set
-        self._ledger.transient(
-            _nbytes(out)
-            + (_nbytes(F_m) if F_m is not None else 0)
-            + sum(_nbytes(h) for h in halos)
-        )
-        self._store_spectra(token, cache, misses, F_m)
-        return out.cpu().numpy(), halos
+        return misses, pattern, parents
 
     def _store_spectra(self, token, cache, misses, F_m) -> None:
         """File a group's miss spectra, split by absolute segment x, so the
@@ -1049,8 +1083,73 @@ class PlanExecutor:
         the spectra-stack walk (full path; deep reuse resumes on the next
         single-sweep tick — mixed ticks don't store halos)."""
         spec0 = self.compiled.layers[0].os_spec
+        with span("exec.resolve"):
+            slots, miss_keys = self._resolve_mixed(meta)
+        for token, keys_m in miss_keys.items():
+            # pad the miss count to a power of two (the reference bounds its
+            # compiled FFT batch sizes this way; the ledger counts the rows)
+            M = len(keys_m)
+            Mp = 1
+            while Mp < M:
+                Mp *= 2
+            starts = np.asarray(keys_m + [keys_m[-1]] * (Mp - M), np.int64)
+            if self.streaming:
+                # a transient slab covering this scope's misses; its shape
+                # varies per tick (the single-sweep path is the one with
+                # the constant-shape slab)
+                x_min = min(k[0] for k in keys_m)
+                x_hi = max(k[0] for k in keys_m) + spec0.seg_extent
+                with span("exec.upload"):
+                    vol, ready = self._stager.stage(self._sweep_hosts[token][:, x_min:x_hi])
+                    self._stager.wait(ready)
+                self._ledger.transient(_nbytes(vol))
+                starts = starts - np.asarray([x_min, 0, 0], np.int64)
+            else:
+                vol = self._sweep_vols[token]
+            with span("exec.segment_fft"):
+                F_all_miss = os_mod.slice_segment_spectra(vol, starts, spec0, self.extent)
+            self._ledger.transient(_nbytes(F_all_miss))
+            with span("exec.store"):
+                self._store_spectra(
+                    token, self._sweeps[token], keys_m, F_all_miss[:M]
+                )
+        # requests on different axes walk different states: one stacked
+        # walk per axis group, outputs put back in meta order
+        by_axis: Dict[int, List[int]] = {}
+        for i, (token, _, _) in enumerate(meta):
+            by_axis.setdefault(self._sweep_axes.get(token, self.sweep_axis), []).append(i)
+        outs: List[Optional[np.ndarray]] = [None] * len(meta)
+        for axis in sorted(by_axis):
+            rows = by_axis[axis]
+            with span("exec.assemble"):
+                flat = []
+                for i in rows:
+                    cache = self._sweeps[meta[i][0]]
+                    for key, F in slots[i]:
+                        if isinstance(F, _PendingMiss):
+                            F = cache[key]  # _store_spectra filed the real ref
+                        flat.append(F.parent[F.idx])
+                F_all = torch.stack(flat).reshape(
+                    (len(rows), spec0.n_segments) + tuple(flat[0].shape)
+                )
+            self._record_trace(("oswalk", tuple(F_all.shape)))
+            states, _ = self._states_for_axis(axis)
+            out, _ = self._os_walk(states, F_all)
+            self._ledger.transient(_nbytes(F_all) + _nbytes(out))
+            with span("exec.copy_back"):
+                out = out.cpu().numpy()
+            for j, i in enumerate(rows):
+                outs[i] = out[j]
+        with span("exec.gather"):
+            return np.stack(outs)
+
+    def _resolve_mixed(self, meta):
+        """Each patch's segment keys against its own sweep's cache, after
+        evicting what that sweep moved past: ``(slots, miss_keys)``, per
+        patch its ``(key, ref)`` pairs and per sweep its missing keys."""
         slots: List[List] = []
         miss_keys: Dict[int, List[Tuple[int, int, int]]] = {}
+        n_seg = self.compiled.layers[0].os_spec.n_segments
         for token, keys, start in meta:
             cache = self._sweeps.setdefault(token, {})
             self._evict_left_of(token, start[0])
@@ -1067,61 +1166,11 @@ class PlanExecutor:
                     self._os_hits += 1
                 per_seg.append((key, F))
             slots.append(per_seg)
-            self._os_mad_segments += spec0.n_segments
+            self._os_mad_segments += n_seg
             if self.fuse_os:
                 self._fused_pair_calls += len(self._fused_pairs)
             self._deep_fulls += 1
-        for token, keys_m in miss_keys.items():
-            # pad the miss count to a power of two (the reference bounds its
-            # compiled FFT batch sizes this way; the ledger counts the rows)
-            M = len(keys_m)
-            Mp = 1
-            while Mp < M:
-                Mp *= 2
-            starts = np.asarray(keys_m + [keys_m[-1]] * (Mp - M), np.int64)
-            if self.streaming:
-                # a transient slab covering this scope's misses; its shape
-                # varies per tick (the single-sweep path is the one with
-                # the constant-shape slab)
-                x_min = min(k[0] for k in keys_m)
-                x_hi = max(k[0] for k in keys_m) + spec0.seg_extent
-                vol, ready = self._stager.stage(self._sweep_hosts[token][:, x_min:x_hi])
-                self._stager.wait(ready)
-                self._ledger.transient(_nbytes(vol))
-                starts = starts - np.asarray([x_min, 0, 0], np.int64)
-            else:
-                vol = self._sweep_vols[token]
-            F_all_miss = os_mod.slice_segment_spectra(vol, starts, spec0, self.extent)
-            self._ledger.transient(_nbytes(F_all_miss))
-            self._store_spectra(
-                token, self._sweeps[token], keys_m, F_all_miss[:M]
-            )
-        # requests on different axes walk different states: one stacked
-        # walk per axis group, outputs put back in meta order
-        by_axis: Dict[int, List[int]] = {}
-        for i, (token, _, _) in enumerate(meta):
-            by_axis.setdefault(self._sweep_axes.get(token, self.sweep_axis), []).append(i)
-        outs: List[Optional[np.ndarray]] = [None] * len(meta)
-        for axis in sorted(by_axis):
-            rows = by_axis[axis]
-            flat = []
-            for i in rows:
-                cache = self._sweeps[meta[i][0]]
-                for key, F in slots[i]:
-                    if isinstance(F, _PendingMiss):
-                        F = cache[key]  # _store_spectra filed the real ref
-                    flat.append(F.parent[F.idx])
-            F_all = torch.stack(flat).reshape(
-                (len(rows), spec0.n_segments) + tuple(flat[0].shape)
-            )
-            self._record_trace(("oswalk", tuple(F_all.shape)))
-            states, _ = self._states_for_axis(axis)
-            out, _ = self._os_walk(states, F_all)
-            self._ledger.transient(_nbytes(F_all) + _nbytes(out))
-            out = out.cpu().numpy()
-            for j, i in enumerate(rows):
-                outs[i] = out[j]
-        return np.stack(outs)
+        return slots, miss_keys
 
     def padded_batch_size(self, n: int) -> int:
         """Batch size to run for ``n`` ready patches: ``n`` itself when it is
@@ -1149,19 +1198,24 @@ class PlanExecutor:
         self._seen_batch_sizes.add(S)
         if self.uses_mpf:
             self._record_trace(("walk", xs.shape))
-            y = self.compiled.apply(self._upload(xs), recombine=True)
+            with span("exec.walk"):
+                y = self.compiled.apply(self._upload(xs), recombine=True)
             self._ledger.transient(xs.nbytes + _nbytes(y))
-            return y.cpu().numpy()
+            with span("exec.copy_back"):
+                return y.cpu().numpy()
         # baseline: all-subsamplings outer loop (P³ shifted passes)
         out = np.empty((S, self.out_channels) + (self.core,) * 3, np.float32)
         n = self.n_in
         for ox, oy, oz in itertools.product(range(self.P), repeat=3):
             sub = xs[:, :, ox : ox + n, oy : oy + n, oz : oz + n]
-            yd = self.compiled.apply(self._upload(sub), recombine=False)
+            with span("exec.walk"):
+                yd = self.compiled.apply(self._upload(sub), recombine=False)
             self._ledger.transient(sub.nbytes + _nbytes(yd))
-            out[:, :, ox :: self.P, oy :: self.P, oz :: self.P] = yd.cpu().numpy()
+            with span("exec.copy_back"):
+                out[:, :, ox :: self.P, oy :: self.P, oz :: self.P] = yd.cpu().numpy()
         return out
 
+    @spanned("exec.upload")
     def _upload(self, xs: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(
             np.ascontiguousarray(xs, np.float32), device=self.device

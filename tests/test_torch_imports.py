@@ -61,6 +61,7 @@ MODULES = (
     "repro_torch.launch.train",
     "repro_torch.examples.serve_lm",
     "repro_torch.flags",
+    "repro_torch.trace",
     "repro_torch.launch.mesh",
     "repro_torch.launch.dryrun",
     "repro_torch.distributed.sharding",
