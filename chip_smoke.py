@@ -12,6 +12,17 @@ Phases, in order; any failure makes the exit code non-zero:
    ptxas's registers, shared memory and spills of the MAD's, the segment
    conv's, the pool's, the direct conv's and decode attention's kernels,
    and of the two backward kernels (``conv3d_wgrad``, ``mpf_pool_bwd``).
+   Then the port's whole-volume 3D FFTs against ZNNi's per-axis passes
+   (``check_fft_forms``) at n337's plan for the committed tuned config's
+   m and batch (the ``n337.blocks`` benchmark cell's): each kernel
+   transform the set-up makes, timed both ways with its
+   ``max_memory_allocated``; the first ``fft_cached`` conv's image
+   forward and inverse against the plain transforms (``naive_rfftn``, a
+   cropped ``torch.fft.irfftn``); its fused conv + pool call against the
+   same call on the per-axis passes and against ``F.conv3d`` (TF32 off) +
+   ReLU + the plain pool; the call's complex64 copy kernels under
+   ``torch.profiler`` (at most 1) and its ``max_memory_allocated`` (no
+   higher than the per-axis passes').
 2. Hold each CUDA kernel of the reuse path against its plain PyTorch
    version on the card, at the shapes the served n337 plan gives it (read
    off the compiled plan), with the tolerance printed beside it; time
@@ -386,6 +397,180 @@ def _check_mad(smoke, label, X, W, got, want):
                 f"max_abs_err {err:.3e} off bin 0 (atol 1e-4*max|plain| there = "
                 f"{atol:.3e}), {err_dc:.3e} at bin 0 (atol {atol_dc:.3e}); rtol 1e-4")
     return max(err, err_dc)
+
+
+def _per_axis_rfftn(x, fft_shape):
+    """ZNNi's pruned forward, the port's transform before the whole-volume
+    one: 1D passes c, b, a, each axis padded as it is transformed."""
+    import torch
+
+    na, nb, nc = fft_shape
+    X = torch.fft.rfft(x.to(torch.float32), n=nc, dim=-1)
+    X = torch.fft.fft(X, n=nb, dim=-2)
+    return torch.fft.fft(X, n=na, dim=-3).contiguous()
+
+
+def _per_axis_irfftn(X, fft_shape, crop_start, crop_size):
+    """ZNNi's pruned inverse: each axis cropped as it is inverse-transformed."""
+    import torch
+
+    (sa, sb, sc), (la, lb, lc) = crop_start, crop_size
+    Y = torch.fft.ifft(X, dim=-3)[..., sa : sa + la, :, :]
+    Y = torch.fft.ifft(Y, dim=-2)[..., :, sb : sb + lb, :]
+    return torch.fft.irfft(Y, n=fft_shape[2], dim=-1)[..., sc : sc + lc]
+
+
+def _c64_copies(events) -> int:
+    """PyTorch copy kernels on complex64 among a profile's device events."""
+    return sum(1 for e in events if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and "direct_copy_kernel" in e.name and "complex<float>" in e.name)
+
+
+def _peak_above(fn, device):
+    """(result, ``max_memory_allocated`` above what was live before) of one call."""
+    import torch
+
+    _free(device)
+    if device.type != "cuda":
+        return fn(), 0
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    out = fn()
+    _sync(device)
+    return out, torch.cuda.max_memory_allocated(device) - base
+
+
+def check_fft_forms(smoke, device, gen, net, hw, m, batch):
+    """Phase 1b: the port's whole-volume 3D FFTs against ZNNi's per-axis
+    passes, at ``net``'s plan for (m, batch) (module docstring)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import convnet, fft_conv, planner, primitives
+    from repro_torch.core import pruned_fft as pf
+    from repro_torch.kernels.mpf_pool import ops as mpf_ops
+    from repro_torch.tuning import autotune
+
+    plan = planner.plan_fixed(net, hw, autotune._os_prims(net), m=m, batch=batch)
+    params = convnet.init_params(net, gen, device=device)
+    params = [None if q is None else (q[0], 0.1 * torch.randn(
+        q[1].shape, generator=gen).to(device)) for q in params]
+    # every kernel transform the set-up makes (output-channel slices),
+    # recorded as it compiles the plan
+    setups = {}
+    record = fft_conv.kernel_rfftn
+
+    def recorded(wi, fft_shape):
+        key = (tuple(wi.shape), tuple(int(s) for s in fft_shape))
+        setups[key] = setups.get(key, 0) + 1
+        return record(wi, fft_shape)
+
+    fft_conv.kernel_rfftn = recorded
+    try:
+        compiled = primitives.compile_from_plan(params, net, plan)
+    finally:
+        fft_conv.kernel_rfftn = record
+    i2 = next(i for i, pl in enumerate(compiled.layers) if pl.prim == "fft_cached")
+    S, f, n = plan.choices[i2].in_shape
+    fs, k = compiled.layers[i2].fft_shape, compiled.layers[i2].kernel_size
+    W, b = compiled.states[i2]["W"], compiled.states[i2]["b"]
+    w = params[i2][0]
+    p = net.layers[i2 + 1].size
+    del compiled, params
+    _free(device)
+    out = tuple(ni - ki + 1 for ni, ki in zip(n, k))
+    x = torch.randn((S, f, *n), generator=gen).to(device)
+    label = f"fft forms, {net.name} m {m} batch {batch} layer {i2}: x {tuple(x.shape)} into {fs}"
+
+    def rel(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+
+    # the kernel spectra at set-up: each distinct slice, timed both ways
+    port_rfftn = pf.pruned_rfftn
+    total = {"whole": 0.0, "per-axis": 0.0}
+    for (shape, fsi), calls in setups.items():
+        wi = (torch.randn(shape, generator=gen) * math.sqrt(2.0 / math.prod(shape[1:]))).to(device)
+        row = {}
+        for form in ("whole", "per-axis"):
+            if form == "per-axis":
+                pf.pruned_rfftn = _per_axis_rfftn
+            try:
+                Wi, peak = _peak_above(lambda: pf.kernel_rfftn(wi, fsi), device)
+                ms = time_ms(lambda: pf.kernel_rfftn(wi, fsi), device, reps=3)
+            finally:
+                pf.pruned_rfftn = port_rfftn
+            row[form] = (Wi, ms, peak)
+            total[form] += calls * ms
+        err = rel(row["whole"][0], row["per-axis"][0])
+        smoke.check(err <= 1e-5, f"fft forms, {net.name} set-up: kernel spectra of w {shape} "
+                                 f"into {fsi}, whole vs per-axis {err:.2e} of max|W| (limit 1e-5)")
+        print(f"fft forms: {net.name} set-up, {calls} x w {shape} into {fsi}: "
+              + ", ".join(f"{form} {ms:.3f} ms, max_memory_allocated {peak / 1e9:.3f} GB above "
+                          "its inputs" for form, (_, ms, peak) in row.items()), flush=True)
+        del row, wi
+    print(f"fft forms: {net.name} set-up kernel spectra in all: whole "
+          f"{total['whole']:.3f} ms, per-axis {total['per-axis']:.3f} ms", flush=True)
+    _free(device)
+
+    # the image's forward and inverse at the fused call
+    want = pf.naive_rfftn(x, fs)
+    Xw, Xp = pf.pruned_rfftn(x, fs), _per_axis_rfftn(x, fs)
+    errs = rel(Xw, want), rel(Xp, want)
+    smoke.check(max(errs) <= 1e-5 and Xw.is_contiguous(),
+                f"{label}: forward whole / per-axis vs naive_rfftn {errs[0]:.2e} / "
+                f"{errs[1]:.2e} of max|X| (limit 1e-5)")
+    del want, Xp
+    plain = torch.fft.irfftn(Xw, s=fs, dim=(-3, -2, -1))[..., : out[0], : out[1], : out[2]]
+    yw = pf.pruned_irfftn(Xw, fs, (0, 0, 0), out)
+    yp = _per_axis_irfftn(Xw, fs, (0, 0, 0), out)
+    errs = rel(yw, plain), rel(yp, plain)
+    smoke.check(max(errs) <= 1e-5,
+                f"{label}: inverse whole / per-axis vs cropped irfftn {errs[0]:.2e} / "
+                f"{errs[1]:.2e} of max|y| (limit 1e-5)")
+    del Xw, yw, yp, plain
+
+    def fused():
+        return fft_conv.fft_conv_pool_fused_halo(x, W, b, fft_shape=fs, k=k, p=p,
+                                                 halo_cols=p - 1)
+
+    port = (fft_conv.pruned_rfftn, fft_conv.pruned_irfftn)
+    got = {}
+    for form, (fwd, inv) in (("whole", port), ("per-axis", (_per_axis_rfftn, _per_axis_irfftn))):
+        fft_conv.pruned_rfftn, fft_conv.pruned_irfftn = fwd, inv
+        try:
+            fused()
+            got[form], peak = _peak_above(fused, device)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fused()
+                _sync(device)
+            copies = _c64_copies(prof.events())
+            ms = time_ms(fused, device, reps=3)
+        finally:
+            fft_conv.pruned_rfftn, fft_conv.pruned_irfftn = port
+        got[form] += (peak, copies)
+        print(f"fft forms: fused call ({form}): {ms:.3f} ms, max_memory_allocated "
+              f"{peak / 1e9:.3f} GB above its inputs, {copies} complex64 copies", flush=True)
+    smoke.check(got["whole"][3] <= 1, f"{label}: {got['whole'][3]} complex64 copies in one "
+                                      "fused call (at most 1)")
+    smoke.check(got["whole"][2] <= got["per-axis"][2],
+                f"{label}: fused call's max_memory_allocated {got['whole'][2] / 1e9:.3f} GB, "
+                f"per-axis passes {got['per-axis'][2] / 1e9:.3f} GB")
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        y = torch.relu(torch.nn.functional.conv3d(x, w, b))
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    plain = (mpf_ops.mpf_pool(y, p, use_kernels=False), y[:, :, -(p - 1):])
+    del y
+    for form in ("whole", "per-axis"):
+        for part, name in ((0, "pooled"), (1, "halo")):
+            ok, err = _close(got[form][part], plain[part], **E2E)
+            smoke.check(ok, f"{label}: fused call ({form}) {name} vs F.conv3d + ReLU + "
+                            f"plain pool: max_abs_err {err:.3e} (atol {E2E['atol']}, "
+                            f"rtol {E2E['rtol']})")
+    ok, err = _close(got["whole"][0], got["per-axis"][0], **E2E)
+    smoke.check(ok, f"{label}: fused call, whole vs per-axis: max_abs_err {err:.3e}")
 
 
 def check_kernels(smoke, ex, plan, device, gen, timed=True):
@@ -4561,8 +4746,18 @@ def main() -> int:
         print(f"ptxas: {name[:48]}: {usage}", flush=True)
 
     device = torch.device("cuda", 0)
+    forms = Smoke()
+    from repro_torch.tuning import load_tuned_config
+
+    cfg = load_tuned_config(N337.name, device=device)
+    forms.check(cfg is not None, f"fft forms: the committed config for {N337.name} loads")
+    if cfg is not None:
+        check_fft_forms(forms, device, torch.Generator().manual_seed(28), N337, H100_SXM,
+                        cfg.m, cfg.batch)
+    torch.cuda.empty_cache()
     results, failures = run(device, N337, m=4, batch=2, hw=H100_SXM, dense_m=8,
                             plain_net=BENCH_NET)
+    failures = forms.failures + failures
     torch.cuda.empty_cache()
     t = time.perf_counter()
     znni_serving, znni_counts, znni_failures = run_znni_nets(device, H100_SXM)

@@ -101,6 +101,7 @@ def fft_conv_task_parallel(
     X = pruned_rfftn(x, fft_shape)
     W = precompute_kernel_fft(w, fft_shape)
     O = cmul_ops.cmul_mad(X, W, use_kernels=use_kernels)
+    del X  # not held beside the inverse's buffers
     return add_channel_bias(pruned_irfftn(O, fft_shape, (0, 0, 0), out), b)
 
 
@@ -147,6 +148,7 @@ def fft_conv_with_precomputed(
         o = _chunked_mad_inverse(X, W, fft_shape, out, fprime_chunk, use_kernels)
         return add_channel_bias(o, b)
     O = cmul_ops.cmul_mad(X, W, use_kernels=use_kernels)
+    del X  # not held beside the inverse's buffers
     o = pruned_irfftn(O, fft_shape, (0, 0, 0), out)
     return add_channel_bias(o, b)
 
@@ -182,6 +184,7 @@ def fft_conv_pool_fused(
         y = _chunked_mad_inverse(X, W, fft_shape, win, fprime_chunk, use_kernels, b=bias)
     else:
         O = cmul_ops.cmul_mad_bias(X, W, b, fft_shape=fft_shape, use_kernels=use_kernels)
+        del X  # not held beside the inverse's buffers
         y = pruned_irfftn(O, fft_shape, (0, 0, 0), win)
     y = mpf_ops.mpf_pool_window(y.contiguous(), p, out, use_kernels=use_kernels)
     return torch.relu(y) if relu else y
@@ -224,6 +227,7 @@ def fft_conv_pool_fused_halo(
             O = cmul_ops.cmul_mad_bias(
                 X, W, b, fft_shape=fft_shape, use_kernels=use_kernels
             )
+            del X  # not held beside the inverse's buffers
             y = pruned_irfftn(O, fft_shape, (0, 0, 0), out)
     else:
         y = fft_conv_with_precomputed(

@@ -1,7 +1,8 @@
 """The port's core numerics vs the JAX package on the same numpy inputs.
 
-Pruned FFTs, the FFT conv with cached kernel spectra (whole and f'-chunked),
-the halo-emitting fused conv + pool pair, the overlap-save applies from
+Pruned FFTs (and, at served extents, against the unpruned transform, each
+one 3D transform a way), the FFT conv with cached kernel spectra (whole and
+f'-chunked), the halo-emitting fused conv + pool pair, the overlap-save applies from
 segment spectra (full and tail, chunked and not), MPF recombination and the
 dense oracle — each against its JAX counterpart on the XLA path.  Tolerance:
 the reference's end-to-end ``atol=1e-3, rtol=1e-4``; FFT round trips
@@ -48,6 +49,70 @@ def test_pruned_fft_round_trip_and_kernel_conjugation():
     np.testing.assert_allclose(y.numpy(), np.asarray(jy), **FFT_TOL)
 
 
+# served extents (live -> transform): images nearly fill their transform
+# (n337's 89 -> 90 and 43 -> 45, n337.spot's 57 -> 60, the deep layers'
+# 20 -> 20); a kernel is a corner of it (3^3 into 90^3)
+FORM_CASES = [
+    ((1, 2, 89, 89, 89), (90, 90, 90), "image"),
+    ((2, 2, 43, 43, 43), (45, 45, 45), "image"),
+    ((2, 2, 57, 57, 57), (60, 60, 60), "image"),
+    ((3, 2, 20, 20, 20), (20, 20, 20), "image"),
+    ((2, 2, 3, 3, 3), (90, 90, 90), "kernel"),
+]
+FFT_CALLS = ("fft", "ifft", "rfft", "irfft", "fftn", "ifftn", "rfftn", "irfftn")
+
+
+def _form_problem(shape, fft_shape):
+    x = torch.from_numpy(np.random.default_rng(7).normal(size=shape).astype(np.float32))
+    # the inverse's crop: a 3^3 conv's valid output, or the kernel's own extent
+    crop = tuple(n - 2 for n in shape[-3:]) if shape[-1] > 3 else shape[-3:]
+    return x, crop
+
+
+def _count_fft_calls(monkeypatch):
+    """Counts of each ``torch.fft`` transform called from here on."""
+    calls = dict.fromkeys(FFT_CALLS, 0)
+    for name in FFT_CALLS:
+        real = getattr(torch.fft, name)
+
+        def counted(*args, _real=real, _name=name, **kwargs):
+            calls[_name] += 1
+            return _real(*args, **kwargs)
+
+        monkeypatch.setattr(torch.fft, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("shape,fft_shape,kind", FORM_CASES)
+def test_pruned_fft_forms_match_naive(shape, fft_shape, kind):
+    """The transforms equal the unpruned transform and the cropped full
+    inverse, image-like and kernel-like inputs alike."""
+    x, crop = _form_problem(shape, fft_shape)
+    want = pruned_fft.naive_rfftn(x, fft_shape)
+    full = torch.fft.irfftn(want, s=fft_shape, dim=(-3, -2, -1))
+    start = (1, 0, 1)
+    size = tuple(min(c, n - s) for c, n, s in zip(crop, fft_shape, start))
+    want_y = full[..., 1 : 1 + size[0], : size[1], 1 : 1 + size[2]]
+    tol = float(want.abs().max()) * 1e-6
+    X = pruned_fft.pruned_rfftn(x, fft_shape)
+    assert X.dtype == torch.complex64 and X.is_contiguous()
+    np.testing.assert_allclose(X.numpy(), want.numpy(), atol=tol, rtol=1e-5)
+    y = pruned_fft.pruned_irfftn(want, fft_shape, start, size)
+    assert y.is_contiguous()
+    np.testing.assert_allclose(y.numpy(), want_y.numpy(), **FFT_TOL)
+
+
+@pytest.mark.parametrize("shape,fft_shape,kind", FORM_CASES)
+def test_pruned_fft_rule_picks_form(shape, fft_shape, kind, monkeypatch):
+    """Whatever the extents, each way is one 3D real transform over the last
+    three axes, with no 1D passes."""
+    x, crop = _form_problem(shape, fft_shape)
+    calls = _count_fft_calls(monkeypatch)
+    X = pruned_fft.pruned_rfftn(x, fft_shape)
+    pruned_fft.pruned_irfftn(X, fft_shape, (0, 0, 0), crop)
+    assert calls == dict(dict.fromkeys(FFT_CALLS, 0), rfftn=1, irfftn=1)
+
+
 def _conv_problem(seed, f=3, fp=5, n=(9, 8, 7), k=(3, 3, 3), S=2):
     rng = np.random.default_rng(seed)
     x = rng.normal(size=(S, f) + n).astype(np.float32)
@@ -90,6 +155,23 @@ def test_fft_conv_pool_fused_halo(with_lead):
     )
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
     np.testing.assert_allclose(halo.numpy(), np.asarray(jhalo), **TOL)
+
+
+@pytest.mark.parametrize("with_lead", [False, True])
+def test_fft_conv_pool_fused_halo_forms(with_lead, monkeypatch):
+    """The kernel spectra set up, then the fused call's image transform and
+    its inverse: one 3D transform each."""
+    x, w, b = _conv_problem(2, n=(8, 9, 9) if with_lead else (9, 9, 9))
+    shape = pruned_fft.fft_optimal_shape(x.shape[2:])
+    calls = _count_fft_calls(monkeypatch)
+    W = fft_conv.precompute_kernel_fft(_t(w), shape)
+    assert calls == dict(dict.fromkeys(FFT_CALLS, 0), rfftn=1)
+    lead = np.random.default_rng(3).normal(size=(2, 5, 1, 7, 7)).astype(np.float32)
+    fft_conv.fft_conv_pool_fused_halo(
+        _t(x), W, _t(b), lead=_t(lead) if with_lead else None,
+        fft_shape=shape, k=(3, 3, 3), p=2, halo_cols=1,
+    )
+    assert calls == dict(dict.fromkeys(FFT_CALLS, 0), rfftn=2, irfftn=1)
 
 
 @pytest.mark.parametrize("fprime_chunk", [None, 3])
