@@ -22,7 +22,14 @@ Phases, in order; any failure makes the exit code non-zero:
    same call on the per-axis passes and against ``F.conv3d`` (TF32 off) +
    ReLU + the plain pool; the call's complex64 copy kernels under
    ``torch.profiler`` (at most 1) and its ``max_memory_allocated`` (no
-   higher than the per-axis passes').
+   higher than the per-axis passes').  Then ``os_segment`` at layer 0's
+   served specs (``check_os_segment_served``: n337 and n537, the full grid
+   and the strip path's tail form) against its plain version, with the
+   ``rows`` it kept and skipped, timed beside its bound and the MAD +
+   ``torch.fft.irfftn`` + crop yardstick; and both forms at the inverse's
+   other shapes (odd C, a (B, C'') plane past shared memory, the product
+   through ``cmul_mad`` at f >= 4), each held to ``OS_REL`` of the largest
+   value the FFT passes compute (the output less its bias).
 2. Hold each CUDA kernel of the reuse path against its plain PyTorch
    version on the card, at the shapes the served n337 plan gives it (read
    off the compiled plan), with the tolerance printed beside it; time
@@ -381,6 +388,26 @@ def _close(got, want, atol, rtol):
     return ok, float(err.max())
 
 
+# os_segment's checks at its inverse's shapes: the error against the
+# largest value of the part of the output the FFT passes compute (the
+# output less its bias b[j], which the DC bin alone carries); sound kernels
+# read ~1e-4 of it or less, a wrong stage, twiddle or permutation O(1)
+OS_REL = 1e-3
+
+
+def _close_os(got, want, b):
+    """(ok, max-abs error, max and std of ``want`` less its bias) for an
+    os_segment output (N, f', ...) and its bias (f',)."""
+    sig = want - b.reshape((1, -1) + (1,) * (want.dim() - 2))
+    err, top = float((got - want).abs().max()), float(sig.abs().max())
+    return err <= OS_REL * top, err, top, float(sig.std())
+
+
+def _os_limit(err, top, std):
+    return (f"max_abs_err {err:.3e} (limit {OS_REL:g} x {top:.3e}, the largest |out - b|; "
+            f"its std {std:.3e})")
+
+
 def _check_mad(smoke, label, X, W, got, want):
     """Hold a MAD kernel's output against its plain version.  Flat bin 0
     carries the DC bias (b*prod(fft_shape)), far above the other bins, so
@@ -573,6 +600,131 @@ def check_fft_forms(smoke, device, gen, net, hw, m, batch):
     smoke.check(ok, f"{label}: fused call, whole vs per-axis: max_abs_err {err:.3e}")
 
 
+# Layer 0's served segment calls: (cell, input, kernel, core, batch)
+OS_SERVED = (("n337", (180,) * 3, (2,) * 3, 96, 2), ("n537", (194,) * 3, (4,) * 3, 32, 1))
+
+
+def os_library(F, W, b, spec, out_cols=None):
+    """The yardstick of ``os_segment`` (the port never calls it): the MAD
+    kernel with its DC-bin bias, one ``torch.fft.irfftn`` of every segment,
+    then the valid crop and the kept columns."""
+    import torch
+
+    from repro_torch.kernels.cmul_mad import ops as cmul_ops
+
+    N, Q = F.shape[:2]
+    O = cmul_ops.cmul_mad_bias(F.reshape((N * Q,) + tuple(F.shape[2:])), W, b,
+                               fft_shape=spec.fft_shape)
+    y = torch.fft.irfftn(O, s=tuple(spec.fft_shape), dim=(-3, -2, -1))
+    y = y[..., :spec.seg_core, :spec.out[1], :spec.out[2]]
+    y = y.reshape((N, Q) + tuple(y.shape[1:])).transpose(1, 2)
+    y = y.reshape(N, y.shape[1], Q * spec.seg_core, *y.shape[-2:])
+    j0 = spec.n_segments - Q
+    L = spec.out[0] if out_cols is None else out_cols
+    lead = spec.out[0] - L - j0 * spec.seg_core
+    return y[:, :, lead:lead + L]
+
+
+def check_os_segment_served(smoke, device, gen, timed=True):
+    """Phase 1c: ``os_segment`` at layer 0's served specs (n337 F (2, 2, 1,
+    98, 180, 91), n537 F (1, 6, ...)) on the full grid and the strip path's
+    tail form (``out_cols`` = core), each against its plain version with
+    its max-abs error, the ``rows`` it kept and skipped, its launches and,
+    with ``timed``, its ms beside its bound (``bench/work.py``'s count: F,
+    W, bias and output once; the MAD and a 2.5 n log2 n inverse FFT) and
+    beside ``os_library`` (MAD + ``torch.fft.irfftn`` + crop).  Then the
+    inverse's other shapes: the conv form at a ragged spec, and both
+    forms at a spec whose (B, C'') plane is past shared memory (pass 2 as
+    two launches)."""
+    import torch
+
+    from repro_torch.core.fft_conv import precompute_kernel_fft
+    from repro_torch.core.overlap_save import plan_overlap_save, tail_segments
+    from repro_torch.kernels.os_segment import ops as seg_ops
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(device)
+
+    out = {}
+    for cell, n, k, core, N in OS_SERVED:
+        spec = plan_overlap_save(n, k, core)
+        A, B, C = spec.fft_shape
+        Cb = C // 2 + 1
+        W = precompute_kernel_fft(0.3 * randn(80, 1, *k), spec.fft_shape)
+        b = 0.1 * randn(80)
+        F_all = torch.complex(randn(N, spec.n_segments, 1, A, B, Cb),
+                              randn(N, spec.n_segments, 1, A, B, Cb))
+        for form, cols in (("full", None), ("strip", core)):
+            q = spec.n_segments if cols is None else tail_segments(spec, cols)
+            cfg = seg_ops._inverse_config(tuple(spec.fft_shape), 1, spec.out[1], N * q)
+            F = F_all[:, spec.n_segments - q:].contiguous()
+            rows0, l0 = dict(seg_ops.rows), seg_ops.launches["os_segment"]
+            got = seg_ops.os_segment_fused(F, W, b, spec, out_cols=cols)
+            kept = seg_ops.rows["kept"] - rows0["kept"]
+            skipped = seg_ops.rows["skipped"] - rows0["skipped"]
+            launched = seg_ops.launches["os_segment"] - l0
+            want = seg_ops.os_segment_fused(F, W, b, spec, out_cols=cols, use_kernels=False)
+            ok, err, top, std = _close_os(got, want, b)
+            label = f"os_segment ({cell} {form}) F {tuple(F.shape)}"
+            smoke.check(ok and launched == 1,
+                        f"{label} vs plain: {_os_limit(err, top, std)}; launches {launched}; "
+                        f"rows kept {kept}, skipped {skipped} "
+                        f"({100.0 * skipped / max(1, kept + skipped):.2f}%); tiles {cfg}")
+            del want
+            r = dict(max_abs_err=err, kept=kept, skipped=skipped)
+            nbytes = _nb(F) + _nb(W) + _nb(b) + _nb(got)
+            n_fft = A * B * C
+            NQ = N * q
+            flops = 8.0 * NQ * 80 * A * B * Cb + NQ * 80 * 2.5 * n_fft * math.log2(n_fft)
+            r["bound_ms"], r["bound_by"] = bound(nbytes, flops)
+            lib = os_library(F, W, b, spec, cols)
+            ok, lerr, top, std = _close_os(got, lib, b)
+            smoke.check(ok, f"{label}: the yardstick (MAD + torch.fft.irfftn + crop) "
+                            f"agrees: {_os_limit(lerr, top, std)}")
+            del lib, got
+            if timed:
+                r["ms"] = time_ms(lambda: seg_ops.os_segment_fused(F, W, b, spec, out_cols=cols),
+                                  device)
+                r["library_ms"] = time_ms(lambda: os_library(F, W, b, spec, cols), device)
+                print(f"kernel os_segment ({cell} {form}): {r['ms']:.3f} ms, library "
+                      f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms ({r['bound_by']}, "
+                      f"{nbytes / 1e9:.3f} GB, {flops / 1e9:.1f} GFLOP): "
+                      f"{100.0 * r['bound_ms'] / r['ms']:.2f}% of it", flush=True)
+            out[f"{cell} {form}"] = r
+            del F
+        del W, F_all
+        torch.cuda.empty_cache()
+    # the other shapes, through both forms: odd C and f = 3; a plane past
+    # shared memory (B 256: 264 KB); cmul_mad's product (f >= MAD_F, odd C)
+    for n, k, core, f, fp in (((23, 29, 31), (3, 3, 3), 5, 3, 41),
+                              ((13, 256, 256), (3, 3, 3), 4, 2, 3),
+                              ((14, 30, 21), (3, 3, 3), 4, 5, 7)):
+        spec = plan_overlap_save(n, k, core)
+        cfg = seg_ops._inverse_config(tuple(spec.fft_shape), f, spec.out[1],
+                                      2 * spec.n_segments)
+        x = torch.relu(randn(2, f, *n))
+        W = precompute_kernel_fft(0.3 * randn(fp, f, *k), spec.fft_shape)
+        b = randn(fp)
+        got = seg_ops.os_segment_conv(x, W, b, spec)
+        want = seg_ops.os_segment_conv(x, W, b, spec, use_kernels=False)
+        ok, err, top, std = _close_os(got, want, b)
+        smoke.check(ok, f"os_segment_conv (inverse shapes) vs plain, x {tuple(x.shape)} "
+                        f"fft {spec.fft_shape}: {_os_limit(err, top, std)}; tiles {cfg}")
+        from repro_torch.core.overlap_save import os_input_spectra
+
+        F = os_input_spectra(x, spec).contiguous()
+        cols = spec.seg_core + 1
+        q = tail_segments(spec, cols)
+        Ft = F[:, spec.n_segments - q:].contiguous()
+        got = seg_ops.os_segment_fused(Ft, W, b, spec, out_cols=cols)
+        want = seg_ops.os_segment_fused(Ft, W, b, spec, out_cols=cols, use_kernels=False)
+        ok, err, top, std = _close_os(got, want, b)
+        smoke.check(ok, f"os_segment (inverse shapes) vs plain, F {tuple(Ft.shape)} "
+                        f"out_cols {cols}: {_os_limit(err, top, std)}; tiles {cfg}")
+    print("os_segment served: " + json.dumps(out), flush=True)
+    return out
+
+
 def check_kernels(smoke, ex, plan, device, gen, timed=True):
     """Phase 2: every kernel vs its plain version at the plan's shapes;
     with ``timed``, each timed beside its plain version, bound and library
@@ -614,17 +766,14 @@ def check_kernels(smoke, ex, plan, device, gen, timed=True):
     out = seg_ops.os_segment_fused(F, W0, b0, spec)
     A, B, C = spec.fft_shape
     Cb = C // 2 + 1
-    NQ, fp, s, oy = N * spec.n_segments, W0.shape[0], spec.seg_core, spec.out[1]
+    NQ, fp = N * spec.n_segments, W0.shape[0]
     # The function's own work: the complex MAD over f, then per (segment,
     # output channel) one real 3D inverse FFT of A*B*C points, counted at
     # 2.5 n log2 n operations.  Bytes: F, W, the bias and the output, each
-    # once.  The kernel's matmul-DFT inverse does far more (printed as its
-    # own work below); the bound does not count it.
+    # once (the kernel's Y1 round trip is not counted).
     n_fft = A * B * C
     flops = 8.0 * NQ * f0 * fp * A * B * Cb + NQ * fp * 2.5 * n_fft * math.log2(n_fft)
     nbytes = _nb(F) + _nb(W0) + _nb(b0) + _nb(out)
-    dft_flops = (8.0 * NQ * fp * s * A * B * Cb + 8.0 * NQ * fp * s * oy * B * Cb
-                 + 4.0 * NQ * fp * s * oy * Cb * spec.out[2])
     r = results["os_segment"]
     r["bound_ms"], r["bound_by"] = bound(nbytes, flops)
     r["library_ms"] = None
@@ -635,9 +784,10 @@ def check_kernels(smoke, ex, plan, device, gen, timed=True):
     r["plain_ms"] = time_ms(
         lambda: seg_ops.os_segment_fused(F, W0, b0, spec, use_kernels=False),
         device, reps=2)
-    print(f"os_segment: the kernel's own matmul-DFT inverse is {dft_flops / 1e9:.1f} "
-          f"GFLOP ({dft_flops / PEAK_FP32 * 1e3:.3f} ms at the fp32 peak); the "
-          f"function needs {flops / 1e9:.1f} GFLOP and {nbytes / 1e9:.3f} GB", flush=True)
+    r["library_ms"] = time_ms(lambda: os_library(F, W0, b0, spec), device)
+    print(f"os_segment: the function needs {flops / 1e9:.1f} GFLOP and "
+          f"{nbytes / 1e9:.3f} GB; the yardstick (MAD + torch.fft.irfftn + crop) "
+          f"{r['library_ms']:.3f} ms", flush=True)
     del out, F, Ft
     return _check_mads_and_pool(smoke, ex, plan, device, randn, results, timed)
 
@@ -4737,7 +4887,8 @@ def main() -> int:
     t = time.perf_counter()
     build.library()
     print(f"kernel build: {time.perf_counter() - t:.1f} s", flush=True)
-    names = ("cmul_mad_kernel", "axis_product", "short_axis", "rows_gemm",
+    names = ("cmul_mad_kernel", "axis_product", "short_axis", "rows_gemm", "inverse_x",
+             "inverse_yz", "inverse_y", "inverse_z",
              "mpf_pool_kernel", "conv3d_plane", "conv3d_column", "decode_attn_chunk",
              "decode_attn_combine", "conv3d_wgrad", "mpf_pool_bwd")
     for entry, usage in build.ptxas_usage(names):
@@ -4754,6 +4905,8 @@ def main() -> int:
     if cfg is not None:
         check_fft_forms(forms, device, torch.Generator().manual_seed(28), N337, H100_SXM,
                         cfg.m, cfg.batch)
+    torch.cuda.empty_cache()
+    check_os_segment_served(forms, device, torch.Generator().manual_seed(31))
     torch.cuda.empty_cache()
     results, failures = run(device, N337, m=4, batch=2, hw=H100_SXM, dense_m=8,
                             plain_net=BENCH_NET)

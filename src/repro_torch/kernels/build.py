@@ -46,12 +46,13 @@ SIGNATURES = {
     "cmul_mad_c64": (_P, _P, _P, _P, _I, _I, _I, _L, _P),
     # x, out, S, f, nx, ny, nz, p, mx, my, mz, stream
     "mpf_pool_f32": (_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    # F, W, nb, ea, eb, mr, mi, Z, Y1, Y2, out,
-    # N, Q, f, fp, A, B, C, s, oy, oz, j0, out0, L, stream
-    "os_segment_f32": (_P,) * 11 + (_I,) * 13 + (_P,),
-    # x, fz, fy, fx, W, nb, ea, eb, mr, mi, bufA, bufB, bufC, out,
-    # N, Q, f, fp, E, seg, nx, ny, nz, A, B, C, s, oy, oz, out0, stream
-    "os_segment_conv_f32": (_P,) * 14 + (_I,) * 16 + (_P,),
+    # F, W, nb, Z, P, T, Y1, Y2, out, N, Q, f, fp, A, B, Cb, C, s, oy, oz,
+    # j0, out0, L, RS, logT, RC, stream
+    "os_segment_f32": (_P,) * 9 + (_I,) * 17 + (_P,),
+    # x, fz, fy, fx, W, nb, P, T, bufA, bufB, bufC, out, N, Q, f, fp, E,
+    # seg, nx, ny, nz, A, B, Cb, C, s, oy, oz, out0, mad, RS, logT, RC,
+    # stream
+    "os_segment_conv_f32": (_P,) * 12 + (_I,) * 21 + (_P,),
     # x, w, out, S, f, fp, nx, ny, nz, kx, ky, kz, stream
     "conv3d_f32": (_P,) * 3 + (_I,) * 9 + (_P,),
     # S, f, fp, nx, ny, nz, kx, ky, kz (returns the chunks C, or -1)

@@ -36,7 +36,9 @@ from repro_torch.kernels.decode_attn import ops as da_ops
 from repro_torch.kernels.direct_conv3d import ops as conv3d_ops
 from repro_torch.kernels.mpf_pool import ops as mpf_ops
 from repro_torch.kernels.mpf_pool import ref as mpf_ref
+from repro_torch.kernels.os_segment import fft_plan
 from repro_torch.kernels.os_segment import ops as seg_ops
+from repro_torch.kernels.os_segment import ref as seg_ref
 
 TOL = dict(atol=1e-4, rtol=1e-4)
 CONV_TOL = dict(atol=1e-3, rtol=1e-4)
@@ -292,56 +294,160 @@ def test_segment_conv_forward_passes_match_plain_version(f, fp):
 
 
 def test_inverse_mats_match_reference_unpadded():
-    """The port's crop-folded DFT matrices are the reference's, minus the
-    TPU lane/sublane padding."""
-    fft_shape, crop = (12, 10, 9), (5, 7, 6)
-    ref = jax_seg._inverse_mats(fft_shape, crop)
-    ea, eb, mr, mi = seg_ops._inverse_mats_np(fft_shape, crop)
-    A, B, C = fft_shape
-    s, oy, oz = crop
-    Cb = C // 2 + 1
-    np.testing.assert_array_equal(ea.real, ref[0][:A, :s])
-    np.testing.assert_array_equal(ea.imag, ref[1][:A, :s])
-    np.testing.assert_array_equal(eb.real, ref[2][:B, :oy])
-    np.testing.assert_array_equal(eb.imag, ref[3][:B, :oy])
-    np.testing.assert_array_equal(mr, ref[4][:Cb, :oz])
-    np.testing.assert_array_equal(mi, ref[5][:Cb, :oz])
+    """The inverse's FFT tables (``fft_plan``), applied as a product to unit
+    spectra through the kernel's stages, give the reference's crop-folded
+    inverse DFT matrices (unnormalized: the kernel scales once, by
+    1/(A·B·C), at the last store): x and y over their kept rows, and the
+    z C2R's real and imaginary rows for odd and even C."""
+    for fft_shape, crop in (((12, 10, 9), (5, 7, 6)), ((14, 15, 8), (6, 9, 5))):
+        ref = jax_seg._inverse_mats(fft_shape, crop)
+        A, B, C = fft_shape
+        s, oy, oz = crop
+        Cb = C // 2 + 1
+        for n, keep, re, im in ((A, s, ref[0][:A, :s], ref[1][:A, :s]),
+                                (B, oy, ref[2][:B, :oy], ref[3][:B, :oy])):
+            ints, tw = fft_plan.axis_tables(n)
+            cols = seg_ref.fft_positions(torch.eye(n, dtype=torch.complex64), ints, tw)
+            got = cols[:, torch.from_numpy(fft_plan.perm(n)[:keep])] / n
+            np.testing.assert_allclose(got.real.numpy(), re, **TOL)
+            np.testing.assert_allclose(got.imag.numpy(), im, **TOL)
+        unit = torch.eye(Cb, dtype=torch.complex64)
+        mr = seg_ref.c2r_z(unit, C)[:, :oz] / C
+        mi = seg_ref.c2r_z(1j * unit, C)[:, :oz] / C
+        np.testing.assert_allclose(mr.numpy(), ref[4][:Cb, :oz], **TOL)
+        # the reference's mi is 0 at DC and (even C) Nyquist, where a C2R
+        # ignores the imaginary part
+        np.testing.assert_allclose(mi.numpy(), ref[5][:Cb, :oz], **TOL)
 
 
 @pytest.mark.parametrize("f,fp", [(1, 5), (9, 3)], ids=["f1", "f9"])
 def test_segment_pipeline_passes_match_plain_version(f, fp):
-    """The CUDA pipeline's arithmetic, replayed with torch ops on the CPU:
-    MAD + DC-bin bias into a scratch spectrum, then the three crop-folded
-    inverse products (a, b, then c as one real product: the spectra read
-    as floats (P, 2C'') against mr and mi interleaved row by row, each
-    output row written to its valid output column) — equal to the plain
-    version within the kernel tolerance."""
+    """The CUDA pipeline's two passes, replayed with torch ops on the CPU in
+    the kernel's order and index maps (``ref.os_segment_passes``: MAD +
+    DC-bin bias, the x-axis FFT through the kernel's stage and twiddle
+    tables, only the kept x-rows written to Y1; then the y-axis FFT and the
+    z C2R of each kept plane) — equal to the plain version within the
+    kernel tolerance, on the full grid and the strip's tail form."""
     n, k, seg_core, _, F, W, b = _segment_problem(f, fp, seed=20 + f)
     spec = plan_overlap_save(n, k, seg_core)
     Ft, Wt, bt = torch.from_numpy(F), torch.from_numpy(W), torch.from_numpy(b)
-    N, Q = F.shape[:2]
-    s, oy, oz = spec.seg_core, spec.out[1], spec.out[2]
-    ea, eb, mr, mi = (torch.from_numpy(m) for m in seg_ops._inverse_mats_np(
-        tuple(spec.fft_shape), (s, oy, oz)))
-    nb = seg_ops._nb_bias(bt, fp, spec.fft_shape, "cpu")
-    Z = cmul_ops.cmul_mad(Ft.reshape((N * Q,) + F.shape[2:]), Wt)
-    Z[..., 0, 0, 0] += nb
-    Z = Z.reshape((N * Q * fp,) + tuple(Z.shape[2:]))
-    Y1 = torch.einsum("mabc,ax->mxbc", Z, ea)
-    Y2 = torch.einsum("mxbc,by->mxyc", Y1, eb)
-    Cb = mr.shape[0]
-    mri = torch.stack([mr, mi], dim=1).reshape(2 * Cb, oz)  # rows mr[0], mi[0], mr[1], ...
-    rows = torch.view_as_real(Y2.contiguous()).reshape(-1, 2 * Cb) @ mri
-    # the last pass's scatter: row (n, q, j, x, y) is output column
-    # q·seg_core + x, kept below out[0] (the tail segment's crop)
-    rows = rows.reshape(N, Q, fp, s, oy, oz)
-    got = torch.zeros((N, fp) + tuple(spec.out))
-    for q in range(Q):
-        for x in range(s):
-            if q * s + x < spec.out[0]:
-                got[:, :, q * s + x] = rows[:, q, :, x]
-    want = seg_ops.os_segment_fused(Ft, Wt, bt, spec)
+    for out_cols in (None, spec.seg_core):
+        q = spec.n_segments if out_cols is None else tail_segments(spec, out_cols)
+        Fq = Ft[:, spec.n_segments - q:].contiguous()
+        got = seg_ref.os_segment_passes(Fq, Wt, bt, spec, out_cols)
+        want = seg_ops.os_segment_fused(Fq, Wt, bt, spec, out_cols=out_cols)
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+# specs whose transform lengths take every radix (4, 2, 3, 5, 7) on every
+# axis, odd and even C: (input, kernel, seg_core) -> fft_shape
+RADIX_SPECS = {
+    "14x30x21": ((40, 30, 21), (3, 3, 3), 12),
+    "35x12x10": ((80, 12, 10), (2, 2, 2), 34),
+    "98x20x18": ((180, 20, 18), (2, 2, 2), 96),
+}
+
+
+@pytest.mark.parametrize("cols", ["full", "strip", "off_grid"])
+@pytest.mark.parametrize("name", sorted(RADIX_SPECS))
+def test_segment_passes_match_plain_version_at_every_radix(name, cols):
+    """The replayed passes at FFT lengths that take every radix, on the full
+    grid, the strip (``out_cols = seg_core``: a lead crop inside the first
+    kept segment) and an off-grid ``out_cols``, against the plain version
+    (``torch.fft``) at the kernel tolerance."""
+    n, k, core = RADIX_SPECS[name]
+    spec = plan_overlap_save(n, k, core)
+    assert "x".join(str(d) for d in spec.fft_shape) == name
+    out_cols = {"full": None, "strip": core, "off_grid": core + 5}[cols]
+    q = spec.n_segments if out_cols is None else tail_segments(spec, out_cols)
+    rng = np.random.default_rng(len(name) + len(cols))
+    A, B, C = spec.fft_shape
+    F = torch.from_numpy(_complex(rng, (2, q, 2, A, B, C // 2 + 1)))
+    W = torch.from_numpy(_complex(rng, (3, 2, A, B, C // 2 + 1)))
+    b = torch.from_numpy(rng.normal(size=(3,)).astype(np.float32))
+    got = seg_ref.os_segment_passes(F, W, b, spec, out_cols)
+    want = seg_ops.os_segment_fused(F, W, b, spec, out_cols=out_cols)
+    assert got.shape == want.shape
     np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+# the served layer-0 specs: (input, kernel, core), batch, expected rows kept
+# by each trailing segment of the full grid and of the strip (out_cols = core)
+SERVED_SPECS = {
+    "n337": ((180,) * 3, (2,) * 3, 96, 2, [96, 83], [13, 83]),
+    "n537": ((194,) * 3, (4,) * 3, 32, 1, [32] * 5 + [31], [1, 31]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SERVED_SPECS))
+def test_row_counter_at_the_served_specs(name):
+    """``rows``' arithmetic at n337's and n537's served layer-0 specs: pass 1
+    keeps one segment row per output column, and skips the rest of the
+    Q·seg_core — n337 13 of 192 (full) and 96 of 192 (strip), n537 1 of 192
+    and 32 of 64 — and both passes fit the card's shared memory as one
+    (B, C'') plane a block."""
+    n, k, core, N, full, strip = SERVED_SPECS[name]
+    spec = plan_overlap_save(n, k, core)
+    fp = 80
+    for out_cols, per_seg in ((None, full), (core, strip)):
+        Q = spec.n_segments if out_cols is None else tail_segments(spec, out_cols)
+        L = spec.out[0] if out_cols is None else out_cols
+        rows = seg_ref.kept_rows(spec, Q, L)
+        assert [x1 - x0 for x0, x1, _ in rows] == per_seg
+        assert [c for _, _, c in rows] == [sum(per_seg[:i]) for i in range(Q)]
+        kept, skipped = seg_ops.row_counts(spec, N, fp, Q, L)
+        assert kept == N * fp * sum(per_seg)
+        assert kept + skipped == N * fp * Q * core
+    share = {
+        "n337": ((13, 192), (96, 192)), "n537": ((1, 192), (32, 64)),
+    }[name]
+    for (num, den), out_cols in zip(share, (None, core)):
+        Q = spec.n_segments if out_cols is None else tail_segments(spec, out_cols)
+        L = spec.out[0] if out_cols is None else out_cols
+        kept, skipped = seg_ops.row_counts(spec, N, fp, Q, L)
+        assert skipped * den == num * (kept + skipped)
+    A, B, C = spec.fft_shape
+    for out_cols in (None, core):
+        Q = spec.n_segments if out_cols is None else tail_segments(spec, out_cols)
+        cfg = seg_ops._inverse_config(tuple(spec.fft_shape), 1, spec.out[1], N * Q)
+        assert cfg["RC"] > 0
+        assert (B * (C // 2 + 1) + cfg["RC"] * (fft_plan.z_length(C) | 1)) * 8 <= seg_ops.SMEM_BLOCK
+        rs = cfg["RS"]
+        assert not cfg["mad"]  # f = 1: pass 1 forms the product itself
+        assert (N * Q) % rs == 0  # no empty (sample, segment) slot
+        assert (rs * A * 8) << cfg["logT"] <= seg_ops.X_TILE
+
+
+# conv-form specs (input, kernel, core), batch, f: the dense path's layer 2
+# (f 80, odd C) and f on either side of MAD_F at an even C
+CONFIG_SPECS = {
+    "layer2_f80": ((73,) * 3, (3,) * 3, 4, 16, 80),
+    "even_c_f4": ((20, 95, 95), (5,) * 3, 8, 8, 4),
+    "even_c_f3": ((20, 95, 95), (5,) * 3, 8, 8, 3),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CONFIG_SPECS))
+def test_inverse_config_follows_the_call_lengths(name):
+    """``_inverse_config`` from a call's lengths alone: cmul_mad forms the
+    product from f = MAD_F input channels on (``mad``), RS leaves the
+    fewest (sample, segment) slots empty, pass 1's tile fits X_TILE, and
+    pass 2's chunk covers two rows a z transform at odd C (one at even C),
+    the plane and its scratch within one block's shared memory."""
+    n, k, core, N, f = CONFIG_SPECS[name]
+    spec = plan_overlap_save(n, k, core)
+    A, B, C = spec.fft_shape
+    NQ, oy = N * spec.n_segments, spec.out[1]
+    cfg = seg_ops._inverse_config(tuple(spec.fft_shape), f, oy, NQ)
+    assert cfg["mad"] == (f >= seg_ops.MAD_F)
+    empty = {r: -(-NQ // r) * r - NQ for r in (4, 2, 1)}
+    assert empty[cfg["RS"]] == min(empty.values())
+    assert (cfg["RS"] * A * 8) << cfg["logT"] <= seg_ops.X_TILE
+    per = 1 if C % 2 == 0 else 2
+    assert cfg["RC"] == min(-(-oy // per), seg_ops.Z_ROWS)
+    plane = B * (C // 2 + 1) * 8
+    assert plane + cfg["RC"] * (fft_plan.z_length(C) | 1) * 8 <= seg_ops.SMEM_BLOCK
 
 
 def test_ptxas_usage_reads_the_build_log(tmp_path, monkeypatch):
