@@ -97,25 +97,25 @@ def fft_conv_task_parallel(
     n, k = x.shape[2:], w.shape[2:]
     if fft_shape is None:
         fft_shape = fft_optimal_shape(n)
-    out = _out_shape(n, k)
-    X = pruned_rfftn(x, fft_shape)
     W = precompute_kernel_fft(w, fft_shape)
-    O = cmul_ops.cmul_mad(X, W, use_kernels=use_kernels)
-    del X  # not held beside the inverse's buffers
-    return add_channel_bias(pruned_irfftn(O, fft_shape, (0, 0, 0), out), b)
+    y = _image_mad_inverse(x, W, fft_shape, _out_shape(n, k), None, use_kernels)
+    return add_channel_bias(y, b)
 
 
-def _chunked_mad_inverse(X, W, fft_shape, crop, fprime_chunk, use_kernels, b=None):
+def _mad_inverse(X, W, fft_shape, crop, fprime_chunk, use_kernels, b=None):
     """MAD + inverse over output-channel chunks of the cached spectra ``W``.
 
-    Bounds live output spectra to one chunk column.  When ``b`` is given
-    the bias rides the DC bin of each chunk (the fused epilogue).
+    ``fprime_chunk`` (``None``: one chunk) bounds live output spectra to
+    one chunk column; one chunk is returned as it is, with no
+    concatenation.  When ``b`` is given the bias rides the DC bin of each
+    chunk (the fused epilogue).  The caller keeps ``X``.
     """
     fp = W.shape[0]
-    c = max(1, int(fprime_chunk))
+    c = max(1, int(fprime_chunk or fp))
     parts = []
     for j in range(0, fp, c):
         Wc = W[j : j + c]
+        # wrappers through their module attribute: bench/devtrace.py swaps it
         if b is None:
             Oc = cmul_ops.cmul_mad(X, Wc, use_kernels=use_kernels)
         else:
@@ -124,7 +124,28 @@ def _chunked_mad_inverse(X, W, fft_shape, crop, fprime_chunk, use_kernels, b=Non
                 X, Wc, bc, fft_shape=fft_shape, use_kernels=use_kernels
             )
         parts.append(pruned_irfftn(Oc, fft_shape, (0, 0, 0), crop))
-    return torch.cat(parts, dim=1)
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
+def _image_mad_inverse(
+    x, W, fft_shape, crop, fprime_chunk, use_kernels, *, dc_bias=False, b=None
+):
+    """Image transform + MAD + inverse to ``crop`` (``_mad_inverse`` over
+    the image's spectra).  With ``dc_bias`` the bias ``b`` (``None``:
+    zero) rides the MAD's DC bin; without it ``b`` is not read."""
+    # pruned_rfftn/pruned_irfftn by this module's names: chip_smoke swaps them
+    X = pruned_rfftn(x, fft_shape)
+    fp = W.shape[0]
+    if fprime_chunk is not None and fprime_chunk < fp:
+        if dc_bias and b is None:
+            b = torch.zeros((fp,), dtype=torch.float32, device=x.device)
+        return _mad_inverse(X, W, fft_shape, crop, fprime_chunk, use_kernels, b=b)
+    if dc_bias:
+        O = cmul_ops.cmul_mad_bias(X, W, b, fft_shape=fft_shape, use_kernels=use_kernels)
+    else:
+        O = cmul_ops.cmul_mad(X, W, use_kernels=use_kernels)
+    del X  # owned here, so dropped before the inverse (a caller's X would live through it)
+    return pruned_irfftn(O, fft_shape, (0, 0, 0), crop)
 
 
 def fft_conv_with_precomputed(
@@ -143,14 +164,8 @@ def fft_conv_with_precomputed(
     live output spectra to a chunk column.
     """
     out = _out_shape(x.shape[2:], k)
-    X = pruned_rfftn(x, fft_shape)
-    if fprime_chunk is not None and fprime_chunk < W.shape[0]:
-        o = _chunked_mad_inverse(X, W, fft_shape, out, fprime_chunk, use_kernels)
-        return add_channel_bias(o, b)
-    O = cmul_ops.cmul_mad(X, W, use_kernels=use_kernels)
-    del X  # not held beside the inverse's buffers
-    o = pruned_irfftn(O, fft_shape, (0, 0, 0), out)
-    return add_channel_bias(o, b)
+    y = _image_mad_inverse(x, W, fft_shape, out, fprime_chunk, use_kernels)
+    return add_channel_bias(y, b)
 
 
 def fft_conv_pool_fused(
@@ -175,17 +190,12 @@ def fft_conv_pool_fused(
     allclose to the unfused sequence.
     """
     out = _out_shape(x.shape[2:], k)
-    X = pruned_rfftn(x, fft_shape)
     # axes a, b cropped during the inverse as usual; axis c left at the
     # full transform length: mpf_pool_window never reads past ``out``
     win = (out[0], out[1], int(fft_shape[2]))
-    if fprime_chunk is not None and fprime_chunk < W.shape[0]:
-        bias = torch.zeros((W.shape[0],), dtype=torch.float32, device=x.device) if b is None else b
-        y = _chunked_mad_inverse(X, W, fft_shape, win, fprime_chunk, use_kernels, b=bias)
-    else:
-        O = cmul_ops.cmul_mad_bias(X, W, b, fft_shape=fft_shape, use_kernels=use_kernels)
-        del X  # not held beside the inverse's buffers
-        y = pruned_irfftn(O, fft_shape, (0, 0, 0), win)
+    y = _image_mad_inverse(
+        x, W, fft_shape, win, fprime_chunk, use_kernels, dc_bias=True, b=b
+    )
     y = mpf_ops.mpf_pool_window(y.contiguous(), p, out, use_kernels=use_kernels)
     return torch.relu(y) if relu else y
 
@@ -216,19 +226,10 @@ def fft_conv_pool_fused_halo(
     DC-bin-bias MAD kernel + pruned inverse (allclose).
     """
     if resolve_use_kernels(use_kernels, x):
-        out = _out_shape(x.shape[2:], k)
-        X = pruned_rfftn(x, fft_shape)
-        if fprime_chunk is not None and fprime_chunk < W.shape[0]:
-            bias = torch.zeros((W.shape[0],), dtype=torch.float32, device=x.device) if b is None else b
-            y = _chunked_mad_inverse(
-                X, W, fft_shape, out, fprime_chunk, use_kernels, b=bias
-            )
-        else:
-            O = cmul_ops.cmul_mad_bias(
-                X, W, b, fft_shape=fft_shape, use_kernels=use_kernels
-            )
-            del X  # not held beside the inverse's buffers
-            y = pruned_irfftn(O, fft_shape, (0, 0, 0), out)
+        y = _image_mad_inverse(
+            x, W, fft_shape, _out_shape(x.shape[2:], k), fprime_chunk, use_kernels,
+            dc_bias=True, b=b,
+        )
     else:
         y = fft_conv_with_precomputed(
             x, W, b, fft_shape, k, use_kernels=use_kernels, fprime_chunk=fprime_chunk

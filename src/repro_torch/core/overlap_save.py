@@ -24,11 +24,11 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from ..kernels.cmul_mad import ops as cmul_ops
 from ..kernels.dispatch import resolve_use_kernels
 from ..kernels.os_segment import ops as seg_ops
+from . import fft_conv
 from .bias import add_channel_bias
-from .pruned_fft import fft_optimal_shape, pruned_irfftn, pruned_rfftn
+from .pruned_fft import fft_optimal_shape, pruned_rfftn
 
 
 @dataclass(frozen=True)
@@ -135,28 +135,6 @@ def os_input_spectra(x: torch.Tensor, spec: OverlapSaveSpec) -> torch.Tensor:
     return segment_spectrum(segs, spec)
 
 
-def _mad_inverse_segment(
-    Fj: torch.Tensor,
-    W: torch.Tensor,
-    spec: OverlapSaveSpec,
-    crop: Tuple[int, ...],
-    use_kernels: Optional[bool],
-    fprime_chunk: Optional[int],
-) -> torch.Tensor:
-    """One segment's MAD + pruned inverse, optionally f'-chunked."""
-    fp = W.shape[0]
-    Fj = Fj.contiguous()
-    if not fprime_chunk or int(fprime_chunk) >= fp:
-        O = cmul_ops.cmul_mad(Fj, W, use_kernels=use_kernels)
-        return pruned_irfftn(O, spec.fft_shape, (0, 0, 0), crop)
-    fc = int(fprime_chunk)
-    parts = []
-    for i in range(0, fp, fc):
-        O = cmul_ops.cmul_mad(Fj, W[i : i + fc], use_kernels=use_kernels)
-        parts.append(pruned_irfftn(O, spec.fft_shape, (0, 0, 0), crop))
-    return torch.cat(parts, dim=1)
-
-
 def os_apply_from_spectra(
     F: torch.Tensor,
     W: torch.Tensor,
@@ -169,24 +147,12 @@ def os_apply_from_spectra(
     """MAD + inverse + reassembly from precomputed input segment spectra.
 
     F (S, n_seg, f, na, nb, nc''), W (f', f, na, nb, nc'') cached conjugate
-    kernel spectra -> (S, f', *spec.out).  On the kernel path the whole
-    per-segment chain (MAD, DC-bin bias, inverse, crop) runs through the
-    fused segment kernel (``kernels.os_segment``), whose output-channel
-    blocking is its own (``fprime_chunk`` does not apply there).
-    Otherwise each segment's MAD and inverse run in turn, keeping one
-    output-spectra column live at a time.
+    kernel spectra -> (S, f', *spec.out): the tail form
+    (``os_apply_tail_from_spectra``) over all ``spec.out[0]`` columns.
     """
-    if resolve_use_kernels(use_kernels, F):
-        return seg_ops.os_segment_fused(F, W, b, spec, use_kernels=True)
-    n_seg = F.shape[1]
-    crop = (spec.seg_core,) + spec.out[1:]
-    parts = []
-    for j in range(n_seg):
-        seg = _mad_inverse_segment(F[:, j], W, spec, crop, use_kernels, fprime_chunk)
-        # aligned grid: segment j owns outputs [j·s, (j+1)·s); the tail's
-        # outputs past the true extent came from padding and are dropped
-        parts.append(seg if j < n_seg - 1 else seg[:, :, : spec.tail_len])
-    return add_channel_bias(torch.cat(parts, dim=2), b)
+    return os_apply_tail_from_spectra(
+        F, W, b, spec, spec.out[0], use_kernels=use_kernels, fprime_chunk=fprime_chunk
+    )
 
 
 def tail_segments(spec: OverlapSaveSpec, out_cols: int) -> int:
@@ -212,7 +178,13 @@ def os_apply_tail_from_spectra(
     F (S, q, f, na, nb, nc'') holds spectra of the last
     ``q = tail_segments(spec, out_cols)`` segments only; returns
     (S, f', out_cols, *spec.out[1:]).  The executor's strip path uses this
-    for interior patches.
+    for interior patches, its full path at ``out_cols = spec.out[0]``.  On
+    the kernel path the whole per-segment chain (MAD, DC-bin bias,
+    inverse, crop) runs through the fused segment kernel
+    (``kernels.os_segment``), whose output-channel blocking is its own
+    (``fprime_chunk`` does not apply there).  Otherwise each segment's MAD
+    and inverse run in turn, keeping one output-spectra column live at a
+    time.
     """
     if resolve_use_kernels(use_kernels, F):
         return seg_ops.os_segment_fused_tail(
@@ -226,7 +198,11 @@ def os_apply_tail_from_spectra(
     parts = []
     for jj in range(q):
         j = j0 + jj
-        seg = _mad_inverse_segment(F[:, jj], W, spec, crop, use_kernels, fprime_chunk)
+        seg = fft_conv._mad_inverse(
+            F[:, jj].contiguous(), W, spec.fft_shape, crop, fprime_chunk, use_kernels
+        )
+        # aligned grid: segment j owns outputs [j·s, (j+1)·s); the tail's
+        # outputs past the true extent came from padding and are dropped
         parts.append(seg if j < n_seg - 1 else seg[:, :, : spec.tail_len])
     x = torch.cat(parts, dim=2)
     lead = (spec.out[0] - out_cols) - j0 * s

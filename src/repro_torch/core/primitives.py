@@ -367,6 +367,18 @@ def prepare_layers(
     return tuple(prepared)
 
 
+def fused_pairs(net: ConvNetConfig, layers: Sequence[PreparedLayer]) -> Tuple[int, ...]:
+    """Positions in ``layers`` whose layer starts a fusable conv + pool
+    pair: an ``fft_cached`` conv that is not the net's last conv (the fused
+    call applies the ReLU), followed by its own ``mpf`` pool."""
+    last_conv = max(i for i, l in enumerate(net.layers) if l.kind == "conv")
+    return tuple(
+        i for i, (pl, nxt) in enumerate(zip(layers, layers[1:]))
+        if pl.kind == "conv" and pl.prim == "fft_cached" and pl.index != last_conv
+        and nxt.kind == "pool" and nxt.prim == "mpf" and nxt.index == pl.index + 1
+    )
+
+
 def apply_prepared_range(
     net: ConvNetConfig,
     prepared: Sequence[PreparedLayer],
@@ -382,32 +394,23 @@ def apply_prepared_range(
     conv), so chaining ranges composes to a full forward pass.  ``states``
     (when given) substitutes each layer's state dict.
 
-    With ``fuse_pairs`` a consecutive ``fft_cached`` conv + ``mpf`` pool
-    pair (not the net's last conv) runs as one ``fft_conv_pool_fused``
-    call (bias on the MAD's DC bin, inverse-window crop folded into the
-    pool, ReLU after the pool) instead of two primitive applies.
+    With ``fuse_pairs`` each pair ``fused_pairs`` names runs as one
+    ``fft_conv_pool_fused`` call (bias on the MAD's DC bin, inverse-window
+    crop folded into the pool, ReLU after the pool) instead of two
+    primitive applies.
     """
     last_conv = max(i for i, l in enumerate(net.layers) if l.kind == "conv")
     prepared = tuple(prepared)
     states = [pl.state for pl in prepared] if states is None else list(states)
+    pairs = fused_pairs(net, prepared) if fuse_pairs else ()
     i = 0
     while i < len(prepared):
         pl = prepared[i]
         st = states[i]
-        nxt = prepared[i + 1] if i + 1 < len(prepared) else None
-        if (
-            fuse_pairs
-            and pl.kind == "conv"
-            and pl.prim == "fft_cached"
-            and pl.index != last_conv  # the fused path applies the ReLU
-            and nxt is not None
-            and nxt.kind == "pool"
-            and nxt.prim == "mpf"
-            and nxt.index == pl.index + 1
-        ):
+        if i in pairs:
             x = fft_conv_pool_fused(
                 x, st["W"], st["b"],
-                fft_shape=pl.fft_shape, k=pl.kernel_size, p=nxt.pool_size,
+                fft_shape=pl.fft_shape, k=pl.kernel_size, p=prepared[i + 1].pool_size,
                 use_kernels=use_kernels, fprime_chunk=pl.fprime_chunk,
             )
             i += 2

@@ -37,8 +37,8 @@ The spans (names without the ``znni.`` prefix) and where each opens:
     ``_assemble_spectra``, the strip group's halos concatenated from the
     cache, and a mixed tick's spectra stack.
 ``exec.layer0``
-    ``os_apply_from_spectra`` or ``os_apply_tail_from_spectra`` and the
-    ReLU after it.
+    ``_layer0``: ``os_apply_tail_from_spectra`` (over all output columns
+    on the full path) and the ReLU after it.
 ``exec.layer.<i>``
     deeper layer ``i`` (or the fused conv+pool pair starting at ``i``),
     its halo concatenation on the strip path and its ReLU.

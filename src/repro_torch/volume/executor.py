@@ -114,6 +114,7 @@ from ..core.primitives import (
     apply_prepared_range,
     compile_plan,
     conv_primitive,
+    fused_pairs,
     plan_input_size,
     pool_primitive,
     resolve_primitive,
@@ -365,25 +366,13 @@ class PlanExecutor:
         self._deep_strips = 0
         self._deep_fulls = 0
         self._fused_pair_calls = 0
-        # layers below the input the halo-emitting fused epilogue can serve
-        # as a conv+pool pair: fft_cached conv, not the net's last conv,
-        # immediately followed by its mpf pool
-        _last_conv = max(i for i, l in enumerate(net.layers) if l.kind == "conv")
-        pairs = []
-        for i in range(1, len(net.layers) - 1):
-            pl_i = self.compiled.layers[i]
-            nxt = self.compiled.layers[i + 1]
-            if (
-                pl_i.kind == "conv"
-                and pl_i.prim == "fft_cached"
-                and pl_i.index != _last_conv
-                and nxt.kind == "pool"
-                and nxt.prim == "mpf"
-                and nxt.index == pl_i.index + 1
-            ):
-                pairs.append(i)
-        self._fused_pairs: Tuple[int, ...] = tuple(pairs)
-        self.fuse_os = bool(fuse_os) and bool(pairs) and self._os_reuse
+        self._last_conv = max(i for i, l in enumerate(net.layers) if l.kind == "conv")
+        # the conv+pool pairs the halo-emitting fused epilogue serves below
+        # the input (layer 0 is walked apart)
+        self._fused_pairs: Tuple[int, ...] = tuple(
+            i for i in fused_pairs(net, self.compiled.layers) if i >= 1
+        )
+        self.fuse_os = bool(fuse_os) and bool(self._fused_pairs) and self._os_reuse
         self._trace_keys: set = set()  # distinct step keys seen
         self.deep_reuse = bool(self._os_reuse and deep_reuse)
         self._halo_caches: Dict[int, Dict[Tuple[int, int, int], List]] = {}
@@ -732,33 +721,38 @@ class PlanExecutor:
 
     # -- the walks -------------------------------------------------------------
 
-    def _walk_below_input(self, states, x, S, *, capture: bool):
+    def _walk(self, layers, states, x, S, *, capture: bool, halos_in=None):
         """Layers 1.. over a layer-0 output, optionally capturing halos.
 
-        ReLU after every conv but the net's last; with ``capture`` records
-        per layer the trailing ``size - 1`` x-columns of its INPUT — the
-        activation halos the next x-patch's strip walk assembles from.
-        With ``fuse_os`` every eligible conv+pool pair runs as one
-        ``fft_conv_pool_fused_halo`` call whose second output is the pool
-        input's halo.  Returns ``(out, halos)``.
+        ``layers``/``states`` are the full walk's, or a strip's with
+        ``halos_in``, the left neighbour's cached activation halos:
+        ``halos_in[i-1]`` is prepended to layer i's input.  ReLU after every
+        conv but the net's last; ``capture`` records per layer the trailing
+        ``size - 1`` x-columns of its INPUT, the halos the next x-patch's
+        strip assembles from.  With ``fuse_os`` each of ``_fused_pairs``
+        runs as one ``fft_conv_pool_fused_halo`` call (lead ``halos_in[i]``)
+        whose second output is the pool input's halo.  ``(out, halos)``.
         """
-        last_conv = max(i for i, l in enumerate(self.net.layers) if l.kind == "conv")
+        # a full walk keeps its input referenced to its end, a strip frees
+        # it at layer 1 (peak_device_gb counts the difference): as before
+        held = x if halos_in is None else None
         halos = []
         i = 1
         while i < len(self.net.layers):
-            pl = self.compiled.layers[i]
+            pl = layers[i]
             with span(f"exec.layer.{i}"):
+                if halos_in is not None:
+                    x = torch.cat([halos_in[i - 1], x], dim=2)
                 if capture:
                     h = self.net.layers[i].size - 1
                     halos.append(x[:, :, -h:])
                 if self.fuse_os and i in self._fused_pairs:
-                    nxt = self.compiled.layers[i + 1]
+                    p = layers[i + 1].pool_size
                     x, pool_halo = fft_conv_pool_fused_halo(
                         x, states[i]["W"], states[i]["b"],
-                        fft_shape=pl.fft_shape, k=pl.kernel_size,
-                        p=nxt.pool_size, halo_cols=nxt.pool_size - 1,
-                        use_kernels=self._use_kernels,
-                        fprime_chunk=pl.fprime_chunk,
+                        fft_shape=pl.fft_shape, k=pl.kernel_size, p=p, halo_cols=p - 1,
+                        lead=None if halos_in is None else halos_in[i],
+                        use_kernels=self._use_kernels, fprime_chunk=pl.fprime_chunk,
                     )
                     if capture:
                         halos.append(pool_halo)
@@ -767,27 +761,26 @@ class PlanExecutor:
                 x = resolve_primitive(pl).apply(
                     pl, x, states[i], use_kernels=self._use_kernels
                 )
-                if pl.kind == "conv" and i != last_conv:
+                if pl.kind == "conv" and i != self._last_conv:
                     x = torch.relu(x)
             i += 1
         if self.uses_mpf:
             with span("exec.recombine"):
                 x = recombine_fragments(x, list(self.compiled.mpf_pools), S)
+        del held
         return x, tuple(halos)
 
-    def _os_walk(self, states, F, *, capture: bool = False):
-        """Forward from precomputed layer-0 segment spectra
-        F (S, n_seg, f, ña, ñb, ñc).  Returns ``(out, halos)``."""
-        pl0 = self.compiled.layers[0]
+    def _layer0(self, states, F, out_cols: int):
+        """Layer 0 from segment spectra F (S, q, f, ña, ñb, ñc), the last
+        q segments: its trailing ``out_cols`` output columns, ReLU'd."""
         with span("exec.layer0"):
-            x = os_mod.os_apply_from_spectra(
-                F, states[0]["W"], states[0]["b"], pl0.os_spec,
-                use_kernels=self._use_kernels,
+            x = os_mod.os_apply_tail_from_spectra(
+                F, states[0]["W"], states[0]["b"], self.compiled.layers[0].os_spec,
+                out_cols, use_kernels=self._use_kernels,
             )
-            last_conv = max(i for i, l in enumerate(self.net.layers) if l.kind == "conv")
-            if last_conv != 0:
+            if self._last_conv != 0:
                 x = torch.relu(x)
-        return self._walk_below_input(states, x, F.shape[0], capture=capture)
+        return x
 
     def _assemble_spectra(self, Fm, parents, pattern, rows_per_patch):
         """Stack the (S·rows_per_patch) spectra rows a step needs: slot
@@ -796,80 +789,29 @@ class PlanExecutor:
         S = len(pattern) // rows_per_patch
         return torch.stack(rows).reshape((S, rows_per_patch) + tuple(rows[0].shape))
 
-    def _os_step(self, states, vol, starts, parents, *, pattern):
-        """One full-path patch batch: miss FFTs + assembly + walk (+ halo
-        capture).  Returns the miss spectra for the sweep cache and the
-        halos for the deep activation cache."""
+    def _os_step(self, states, strip_states, vol, starts, parents, halos_in, *, pattern):
+        """One patch batch: miss FFTs + assembly + layer 0 + the walk below
+        it, capturing halos under deep reuse.  An interior strip batch
+        (``halos_in`` given) pays layer 0's MAD + inverse only for the
+        ``tail_segments`` of its new core columns.  Returns the outputs,
+        the miss spectra and the captured halos."""
+        strip = halos_in is not None
         spec0 = self.compiled.layers[0].os_spec
         Fm = None
         if starts is not None:
             with span("exec.segment_fft"):
                 Fm = os_mod.slice_segment_spectra(vol, starts, spec0, self.extent)
         with span("exec.assemble"):
-            F_all = self._assemble_spectra(Fm, parents, pattern, spec0.n_segments)
-        out, halos = self._os_walk(states, F_all, capture=self.deep_reuse)
-        return out, Fm, halos
-
-    def _os_strip_step(
-        self, states, strip_states, vol, starts, parents, halos, *, pattern
-    ):
-        """One interior-patch batch: the deep-reuse strip.
-
-        Layer 0 pays MAD + inverse only for the ``tail_segments`` covering
-        the batch's new core columns; every deeper layer runs on
-        ``halos[i-1]`` (the left neighbour's cached activation halo)
-        concatenated with the newly computed strip.  Returns the patch
-        cores, the miss spectra, and the batch's own trailing halos.
-        """
-        spec0 = self.compiled.layers[0].os_spec
-        Fm = None
-        if starts is not None:
-            with span("exec.segment_fft"):
-                Fm = os_mod.slice_segment_spectra(vol, starts, spec0, self.extent)
-        with span("exec.assemble"):
-            F = self._assemble_spectra(Fm, parents, pattern, self._q_strip)
-        S = F.shape[0]
-        last_conv = max(i for i, l in enumerate(self.net.layers) if l.kind == "conv")
-        with span("exec.layer0"):
-            x = os_mod.os_apply_tail_from_spectra(
-                F, states[0]["W"], states[0]["b"], spec0, self.core,
-                use_kernels=self._use_kernels,
+            F = self._assemble_spectra(
+                Fm, parents, pattern, self._q_strip if strip else spec0.n_segments
             )
-            if last_conv != 0:
-                x = torch.relu(x)
-        new_halos = []
-        i = 1
-        while i < len(self.net.layers):
-            pl = self._strip_layers[i]
-            h, _ = self._strip_info[i]
-            with span(f"exec.layer.{i}"):
-                x = torch.cat([halos[i - 1], x], dim=2)
-                new_halos.append(x[:, :, -h:])
-                if self.fuse_os and i in self._fused_pairs:
-                    # the pool layer's input is the cached lead halo halos[i] +
-                    # the conv's ReLU output, assembled inside the fused call
-                    nxt = self._strip_layers[i + 1]
-                    h_pool, _ = self._strip_info[i + 1]
-                    x, pool_halo = fft_conv_pool_fused_halo(
-                        x, strip_states[i]["W"], strip_states[i]["b"],
-                        fft_shape=pl.fft_shape, k=pl.kernel_size,
-                        p=nxt.pool_size, halo_cols=h_pool, lead=halos[i],
-                        use_kernels=self._use_kernels,
-                        fprime_chunk=pl.fprime_chunk,
-                    )
-                    new_halos.append(pool_halo)
-                    i += 2
-                    continue
-                x = resolve_primitive(pl).apply(
-                    pl, x, strip_states[i], use_kernels=self._use_kernels
-                )
-                if pl.kind == "conv" and i != last_conv:
-                    x = torch.relu(x)
-            i += 1
-        if self.uses_mpf:
-            with span("exec.recombine"):
-                x = recombine_fragments(x, list(self.compiled.mpf_pools), S)
-        return x, Fm, tuple(new_halos)
+        out, halos = self._walk(
+            self._strip_layers if strip else self.compiled.layers,
+            strip_states if strip else states,
+            self._layer0(states, F, self.core if strip else spec0.out[0]),
+            F.shape[0], capture=self.deep_reuse, halos_in=halos_in,
+        )
+        return out, Fm, halos
 
     # -- batches ---------------------------------------------------------------
 
@@ -964,6 +906,7 @@ class PlanExecutor:
             vol = self._sweep_vols[token]
             off = np.zeros(3, np.int64)
         starts = np.asarray(misses, np.int64) - off if misses else None
+        halos_in = None
         if strip:
             with span("exec.assemble"):
                 halos_in = tuple(
@@ -972,23 +915,17 @@ class PlanExecutor:
                     )
                     for pos in range(len(self.net.layers) - 1)
                 )
-            self._record_trace(
-                ("strip", tuple(pattern), None if starts is None else len(misses),
-                 tuple(vol.shape), len(parents))
-            )
-            out, F_m, halos = self._os_strip_step(
-                states, strip_states, vol, starts, tuple(parents), halos_in,
-                pattern=tuple(pattern),
-            )
+        self._record_trace(
+            ("strip" if strip else "full", tuple(pattern),
+             None if starts is None else len(misses), tuple(vol.shape), len(parents))
+        )
+        out, F_m, halos = self._os_step(
+            states, strip_states, vol, starts, tuple(parents), halos_in,
+            pattern=tuple(pattern),
+        )
+        if strip:
             self._deep_strips += len(metas)
         else:
-            self._record_trace(
-                ("full", tuple(pattern), None if starts is None else len(misses),
-                 tuple(vol.shape), len(parents))
-            )
-            out, F_m, halos = self._os_step(
-                states, vol, starts, tuple(parents), pattern=tuple(pattern)
-            )
             self._deep_fulls += len(metas)
         # transient sample: group output + miss spectra + captured halos in
         # flight on top of the resident working set
@@ -1134,7 +1071,10 @@ class PlanExecutor:
                 )
             self._record_trace(("oswalk", tuple(F_all.shape)))
             states, _ = self._states_for_axis(axis)
-            out, _ = self._os_walk(states, F_all)
+            out, _ = self._walk(
+                self.compiled.layers, states, self._layer0(states, F_all, spec0.out[0]),
+                F_all.shape[0], capture=False,
+            )
             self._ledger.transient(_nbytes(F_all) + _nbytes(out))
             with span("exec.copy_back"):
                 out = out.cpu().numpy()

@@ -2,7 +2,8 @@
 
 Pruned FFTs (and, at served extents, against the unpruned transform, each
 one 3D transform a way), the FFT conv with cached kernel spectra (whole and
-f'-chunked), the halo-emitting fused conv + pool pair, the overlap-save applies from
+f'-chunked), the DC-bin-bias MAD-to-inverse body, the halo-emitting fused
+conv + pool pair, the overlap-save applies from
 segment spectra (full and tail, chunked and not), MPF recombination and the
 dense oracle — each against its JAX counterpart on the XLA path.  Tolerance:
 the reference's end-to-end ``atol=1e-3, rtol=1e-4``; FFT round trips
@@ -172,6 +173,40 @@ def test_fft_conv_pool_fused_halo_forms(with_lead, monkeypatch):
         fft_shape=shape, k=(3, 3, 3), p=2, halo_cols=1,
     )
     assert calls == dict(dict.fromkeys(FFT_CALLS, 0), rfftn=2, irfftn=1)
+
+
+@pytest.mark.parametrize("fprime_chunk", [None, 2])
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_image_mad_inverse_dc_bias(fprime_chunk, with_bias, monkeypatch):
+    """The DC-bin-bias form of the image-level MAD-to-inverse body, the
+    arithmetic of ``fft_conv_pool_fused_halo``'s kernel branch (which a CPU
+    tensor never takes), through the plain MADs: at crop ``out``, and in the
+    first ``out`` columns of the pool's crop ``win``, it equals the
+    spatial-bias conv.  One ``cmul_mad_bias`` call a chunk, through the
+    module attribute."""
+    x, w, b = _conv_problem(6)
+    shape = pruned_fft.fft_optimal_shape(x.shape[2:])
+    W = fft_conv.precompute_kernel_fft(_t(w), shape)
+    jW = jax_fft_conv.precompute_kernel_fft(jnp.asarray(w), shape)
+    want = np.asarray(jax_fft_conv.fft_conv_with_precomputed(
+        jnp.asarray(x), jW, jnp.asarray(b) if with_bias else None, shape, (3, 3, 3),
+        use_pallas=False,
+    ))
+    out = want.shape[2:]
+    calls = []
+    mad_bias = fft_conv.cmul_ops.cmul_mad_bias
+    monkeypatch.setattr(fft_conv.cmul_ops, "cmul_mad_bias",
+                        lambda *a, **kw: calls.append(1) or mad_bias(*a, **kw))
+    for crop in (out, (out[0], out[1], shape[2])):
+        got = fft_conv._image_mad_inverse(
+            _t(x), W, shape, crop, fprime_chunk, False,
+            dc_bias=True, b=_t(b) if with_bias else None,
+        )
+        assert tuple(got.shape) == tuple(want.shape[:2]) + tuple(crop)
+        np.testing.assert_allclose(
+            got[..., : out[0], : out[1], : out[2]].numpy(), want, **TOL
+        )
+    assert len(calls) == 2 * (1 if fprime_chunk is None else 3)  # f' = 5
 
 
 @pytest.mark.parametrize("fprime_chunk", [None, 3])

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs.base import ConvLayerSpec as JL, ConvNetConfig as JC
 from repro.configs.znni_nets import BENCH_NET as JAX_BENCH, N337 as JAX_N337
 from repro.core import hw as jax_hw
 from repro.core import planner as jax_planner
@@ -21,8 +22,8 @@ from repro.core.overlap_save import plan_overlap_save as jax_plan_os
 from repro.core.pruned_fft import fft_optimal_shape as jax_fft_shape
 from repro.volume import tiler as jax_tiler
 from repro.volume.executor import PlanExecutor as JaxExecutor
-from repro_torch.configs.znni_nets import BENCH_NET, N337
-from repro_torch.core import convnet, hw, planner
+from repro_torch.configs.znni_nets import BENCH_NET, N337, N537
+from repro_torch.core import convnet, hw, planner, primitives
 from repro_torch.core.overlap_save import plan_overlap_save
 from repro_torch.core.pruned_fft import fft_optimal_shape
 from repro_torch.volume import tiler
@@ -133,6 +134,60 @@ def test_executor_predict_counts_equal(net, jnet, m, batch, shape, deep):
     _same(ex.predict_counts(shape), jex.predict_counts(shape))
     assert ex._fused_pairs == jex._fused_pairs
     assert ex._q_strip == jex._q_strip
+
+
+def _narrow(net, maps):
+    return dataclasses.replace(net, layers=tuple(
+        dataclasses.replace(l, out_channels=maps if l.out_channels == 80 else l.out_channels)
+        for l in net.layers))
+
+
+# conv + pool pairs that fuse: layers 2 and 4 (each fft_cached conv above a
+# pool); plan_single puts overlap_save at layer 2 of n337 and n537 and
+# direct convs all through bench-net
+PAIRS = {"reuse": {"n337": (2, 4), "n537": (2, 4), "bench-net": (2,)},
+         "plan_single": {"n337": (4,), "n537": (4,), "bench-net": ()}}
+
+
+@pytest.mark.parametrize("net", [N337, N537, BENCH_NET], ids=lambda n: n.name)
+@pytest.mark.parametrize("prims_of", ["reuse", "plan_single"])
+def test_dense_walk_fuses_the_named_pairs(net, prims_of, monkeypatch):
+    """The one pair rule: the dense walk calls ``fft_conv_pool_fused`` once
+    per position ``fused_pairs`` names, and those below the input are the
+    reference executor's ``_fused_pairs``.  The served prims (the reuse mix,
+    and ``plan_single``'s for an H100) on the net at one map a layer."""
+    prims = (_os_prims(net) if prims_of == "reuse" else
+             [c.prim for c in planner.plan_single(net, hw.H100_SXM, max_m=4).choices])
+    net = _narrow(net, 1)
+    rng = np.random.default_rng(0)
+    np_params, f = [], net.in_channels
+    for layer in net.layers:
+        if layer.kind != "conv":
+            np_params.append(None)
+            continue
+        k, fp = layer.size, layer.out_channels
+        np_params.append(((rng.normal(size=(fp, f, k, k, k)) * 0.1).astype(np.float32),
+                          rng.normal(size=(fp,)).astype(np.float32)))
+        f = fp
+    n_in = primitives.plan_input_size(net, prims, 1)
+    compiled = primitives.compile_plan(
+        convnet.params_from_numpy(np_params, device="cpu"), net, prims=prims,
+        n_in=n_in, use_kernels=False, fuse_pairs=True,
+    )
+    pairs = primitives.fused_pairs(net, compiled.layers)
+    calls = []
+    fused = primitives.fft_conv_pool_fused
+    monkeypatch.setattr(primitives, "fft_conv_pool_fused",
+                        lambda *a, **kw: calls.append(kw["fft_shape"]) or fused(*a, **kw))
+    with torch.no_grad():
+        compiled.apply(torch.randn(1, net.in_channels, n_in, n_in, n_in))
+    assert calls == [compiled.layers[i].fft_shape for i in pairs]
+    jnet = JC(net.name, net.in_channels,
+              tuple(JL(l.kind, l.size, l.out_channels) for l in net.layers))
+    jparams = [None if p is None else tuple(map(jnp.asarray, p)) for p in np_params]
+    jex = JaxExecutor(jparams, jnet, prims=prims, m=1, batch=1, tuned=None)
+    assert tuple(i for i in pairs if i >= 1) == jex._fused_pairs
+    assert pairs == PAIRS[prims_of][net.name]
 
 
 def test_registry_names_match_cost_model():
